@@ -13,8 +13,11 @@ Phases, each printing one line and asserting:
   4. engine: the full-width main path -- RetinaFace-ResNet50 + YOLOv8n at
      640, bf16, random weights from seed 0, mosaic level 8 -- blurring a few
      8x1080x1920 RGB batches through process_batch, with the kernel's launch
-     count, the blurred frames held against the plain mosaic of the engine's
-     own boxes, and the networks in float32 held against the CPU;
+     count and the blurred frames held against the plain mosaic of the
+     engine's own boxes;
+  5. reference: the card against the CPU on the same weights in float32:
+     both networks, then the rest of the engine's program (letterbox
+     canvas, decode, NMS, inverse letterbox, box order);
 then a "kernels" JSON line, the nvidia-smi line, and the result line.
 Exits non-zero without CUDA, outside the repository, or on any failure.
 """
@@ -22,13 +25,13 @@ Exits non-zero without CUDA, outside the repository, or on any failure.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+SECTOR_BYTES = 32  # the card reads and writes memory in 32-byte sectors
 BATCH, HEIGHT, WIDTH = 8, 1080, 1920
 ENGINE_BATCHES = 6
 WARMUP_BATCHES = 2
@@ -48,31 +51,30 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of one call of ``fn``."""
+def mosaic_bound_ms(frames, boxes, valid, level) -> float:
+    """Least time for the mosaic: the bytes it must move over the HBM rate.
+
+    The boxes' remaps compose, so each output pixel is one input pixel; the
+    plain mosaic of an index frame gives that source for every pixel. The
+    mosaic is in place: a pixel whose source is another pixel is written and
+    its source read (the old value of a box is never needed, and a box of
+    extent b reads only max(1, b // level) of its rows and columns);
+    nothing else moves. Both are counted in the 32-byte sectors that hold
+    them, since the card moves no less."""
     import torch
 
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from video_desensitization_torch.ops.mosaic import mosaic_boxes_batch_
 
+    b, h, w, c = frames.shape
+    index = torch.arange(b * h * w, dtype=torch.int64, device=frames.device).view(b, h, w, 1)
+    source = mosaic_boxes_batch_(index.clone(), boxes, valid, level)
+    moved = source != index
+    channel = torch.arange(c, device=frames.device)
 
-def mosaic_bound_ms(boxes, valid, h, w, c) -> float:
-    """Least time for the mosaic: each valid clipped box's pixels read once
-    and written once, 2 * area * C bytes, over the HBM rate."""
-    import torch
+    def sectors(pixels):
+        return torch.unique((pixels[:, None] * c + channel) // SECTOR_BYTES).numel()
 
-    from video_desensitization_torch.ops.mosaic import clip_boxes
-
-    clipped, ok = clip_boxes(boxes.cpu().to(torch.int64), valid.cpu(), h, w)
-    area = (clipped[..., 2] - clipped[..., 0]) * (clipped[..., 3] - clipped[..., 1])
-    nbytes = int((2 * area * c * ok).sum())
+    nbytes = SECTOR_BYTES * (sectors(index[moved]) + sectors(source[moved]))
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -96,10 +98,11 @@ def check_mosaic(frames, boxes, valid, level, reps=10):
     Returns a dict of the measured numbers."""
     import torch
 
+    from video_desensitization_torch.bench_util import cuda_time_ms
     from video_desensitization_torch.ops import cuda_mosaic
     from video_desensitization_torch.ops.mosaic import mosaic_boxes_batch_
 
-    b, h, w, c = frames.shape
+    c = frames.shape[-1]
     before = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
     got = cuda_mosaic.mosaic_boxes_batch_cuda_(frames.clone(), boxes, valid, level)
     check(cuda_mosaic.mosaic_boxes_batch_cuda_.launches == before + 1)
@@ -108,13 +111,13 @@ def check_mosaic(frames, boxes, valid, level, reps=10):
     max_err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
     check(torch.equal(got, want), f"kernel != plain (C={c}, level={level}), max err {max_err}")
     work = frames.clone()
-    ms = time_ms(lambda: cuda_mosaic.mosaic_boxes_batch_cuda_(work, boxes, valid, level), reps)
-    plain_ms = time_ms(lambda: mosaic_boxes_batch_(work, boxes, valid, level), 3)
+    ms = cuda_time_ms(lambda: cuda_mosaic.mosaic_boxes_batch_cuda_(work, boxes, valid, level), reps)
+    plain_ms = cuda_time_ms(lambda: mosaic_boxes_batch_(work, boxes, valid, level), 3)
     return {
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": mosaic_bound_ms(boxes, valid, h, w, c),
+        "bound_ms": mosaic_bound_ms(frames, boxes, valid, level),
         "boxes": int(valid.sum()),
     }
 
@@ -176,9 +179,9 @@ def phase_engine() -> dict:
     import numpy as np
     import torch
 
+    from video_desensitization_torch.bench_util import engine_fps, main_path_engine
     from video_desensitization_torch.ops import cuda_mosaic
     from video_desensitization_torch.ops.mosaic import mosaic_boxes_batch_
-    from video_desensitization_torch.profile_engine import main_path_engine
 
     engine = main_path_engine()
     rng = np.random.default_rng(1)
@@ -186,16 +189,11 @@ def phase_engine() -> dict:
         rng.integers(0, 256, (BATCH, HEIGHT, WIDTH, 3), dtype=np.uint8)
         for _ in range(ENGINE_BATCHES)
     ]
-    for frames in batches[:WARMUP_BATCHES]:  # cuDNN plans, tables, library
-        engine.process_batch(frames)
-    torch.cuda.synchronize()
-
     cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
-    t0 = time.perf_counter()
-    results = [engine.process_batch(frames) for frames in batches]
-    elapsed = time.perf_counter() - t0
+    fps, results = engine_fps(engine, batches, warmup=WARMUP_BATCHES)
     launches = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
-    check(launches == ENGINE_BATCHES, f"mosaic kernel launched {launches}x")
+    runs = WARMUP_BATCHES + ENGINE_BATCHES
+    check(launches == runs, f"mosaic kernel launched {launches}x in {runs} batches")
 
     n_boxes = 0
     for frames, res in zip(batches, results):
@@ -222,24 +220,53 @@ def phase_engine() -> dict:
     timing = check_mosaic(
         torch.from_numpy(batches[-1]).cuda(), dev_boxes, dev_valid, engine.mosaic_level
     )
-    fps = ENGINE_BATCHES * BATCH / elapsed
     print(
         f"phase engine: resnet50+yolov8n 640 bf16, {ENGINE_BATCHES}x{BATCH}x{HEIGHT}x{WIDTH}: "
-        f"{fps:.2f} frames/s, {n_boxes / (ENGINE_BATCHES * BATCH):.2f} boxes/frame, "
-        f"letterbox {engine.last_letterbox}, mosaic launches {launches}, "
+        f"{fps:.2f} frames/s (results held), {n_boxes / (ENGINE_BATCHES * BATCH):.2f} boxes/frame, "
+        f"letterbox {engine.last_letterbox}, mosaic launches {launches} in {runs} batches, "
         f"blurred == plain mosaic of the engine's boxes",
         flush=True,
     )
     return {**timing, "launches": launches}
 
 
+def _recording(net, calls):
+    """``net``, keeping a CPU copy of each call's input and outputs."""
+    def run(x):
+        out = net(x)
+        calls.append((x.cpu(), [o.cpu() for o in out]))
+        return out
+    return run
+
+
+def _replaying(calls):
+    """Stands in for a network on the CPU: checks that its input equals the
+    card's to float32 rounding (the card divides by a scalar as a multiply
+    by its reciprocal, one ulp from the CPU's quotient; a canvas pixel off
+    by one level would differ by 1/255) and returns the card's outputs."""
+    import torch
+
+    def run(x):
+        card_x, out = calls.pop(0)
+        check(torch.allclose(x, card_x, rtol=1e-6, atol=0), "network input on the card != on the CPU")
+        return out
+    return run
+
+
 def phase_reference() -> None:
-    """Both networks in float32 on the card against the same weights on the
-    CPU (TF32 off): the port's own reference for the device results."""
+    """The card against the CPU on the same weights in float32, TF32 off.
+
+    First both networks on one input. Then the rest of the engine's program
+    on a small RGB batch: the CPU replays the card's network outputs, and
+    the networks' inputs (letterbox canvas, mean-sub, 114-gray repad) must
+    agree to rounding, the keep masks be equal and the boxes (decode, NMS, inverse
+    letterbox, faces before plates) within 1e-3 px or 1e-5 of their size.
+    Replaying keeps float noise out of the NMS choices: random weights give
+    near-tied scores and boxes far outside the frame."""
     import numpy as np
     import torch
 
-    from video_desensitization_torch.profile_engine import main_path_engine
+    from video_desensitization_torch.bench_util import main_path_engine
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -253,7 +280,33 @@ def phase_reference() -> None:
             for a, b in zip(g(x.cuda()), c(x)):
                 torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
                 worst = max(worst, float((a.cpu() - b).abs().max()))
-    print(f"phase reference: f32 nets on the card vs the CPU, max abs diff {worst:.2e}", flush=True)
+
+    frames = np.random.default_rng(3).integers(0, 256, (2, 216, 384, 3), dtype=np.uint8)
+    shapes = torch.tensor([[216.0, 384.0]] * 2)
+    face_calls, plate_calls = [], []
+    gpu.face.net = _recording(gpu.face.net, face_calls)
+    gpu.plate.net = _recording(gpu.plate.net, plate_calls)
+    card = [t.cpu() for t in gpu.program(torch.from_numpy(frames.copy()).cuda(), shapes.cuda())]
+    cpu.face.net, cpu.plate.net = _replaying(face_calls), _replaying(plate_calls)
+    host = cpu.program(torch.from_numpy(frames.copy()), shapes)
+    check(not face_calls and not plate_calls and gpu.last_letterbox == cpu.last_letterbox)
+    _, face_px, face_keep, plate_px, plate_keep = card
+    check(torch.equal(face_keep, host[2]) and torch.equal(plate_keep, host[4]),
+          "keep masks on the card != on the CPU")
+    check(bool(face_keep.any() and plate_keep.any()), "the program kept no box")
+    box_err = box_size = 0.0
+    for a, b in ((face_px, host[1]), (plate_px, host[3])):
+        torch.testing.assert_close(a[..., :4], b[..., :4], rtol=1e-5, atol=1e-3)
+        box_err = max(box_err, float((a[..., :4] - b[..., :4]).abs().max()))
+        box_size = max(box_size, float(b[..., :4].abs().max()))
+    print(
+        f"phase reference: f32 nets on the card vs the CPU, max abs diff {worst:.2e} | "
+        f"program on 2x216x384 ({gpu.last_letterbox}) with the card's net outputs replayed "
+        f"on the CPU: net inputs equal to 1e-6, keep masks equal ({int(face_keep.sum())} faces, "
+        f"{int(plate_keep.sum())} plates), boxes max diff {box_err:.2e} px at coordinates "
+        f"up to {box_size:.3g} px",
+        flush=True,
+    )
 
 
 def main() -> int:

@@ -9,9 +9,12 @@
 // where cur is the frame after boxes 0..k-1 and T is the (maxdim+1, maxdim)
 // int16 composed-remap table of ops/mosaic.py::composed_mosaic_table.
 //
-// Bound: bytes. The kernel reads and writes each clipped box's pixels once:
-// 2 * area * C bytes per box against the card's memory rate; it does no
-// arithmetic worth counting.
+// Bound: bytes; there is no arithmetic worth counting. The least traffic
+// writes each pixel whose source is another pixel once and reads each such
+// source once: about area * C bytes written per box (its old values are
+// never needed) and, since a box of extent b reads max(1, b / level) of its
+// rows, about area * C / level read, in 32-byte sectors. chip_smoke.py
+// counts it exactly on the run's boxes.
 //
 // Design: one block per frame walks its boxes in order, so box k+1 sees box
 // k's writes after a __syncthreads(). The hazard is that a box reads its

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import sys
 import time
 import warnings
@@ -30,20 +29,9 @@ import warnings
 import numpy as np
 import torch
 
+from video_desensitization_torch.bench_util import cuda_time_ms, engine_fps, main_path_engine
+
 BATCH, HEIGHT, WIDTH = 8, 1080, 1920
-
-
-def _median_ms(fn, reps=5):
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _device_time_us(evt) -> float:
@@ -51,22 +39,6 @@ def _device_time_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
-
-
-def main_path_engine(device="cuda", backbone="resnet50", input_hw=(640, 640),
-                     dtype=torch.bfloat16, seed: int = 0):
-    """The engine of the main path; the defaults are the CLI's full-width
-    configuration (max 16 faces, 8 plates, mosaic level 8), with random
-    weights from ``seed``."""
-    from video_desensitization_torch.detect.face import Retinaface
-    from video_desensitization_torch.detect.plate import PlateDetector
-    from video_desensitization_torch.pipeline.engine import DesensitizationEngine
-
-    face = Retinaface(backbone=backbone, input_shape=[*input_hw, 3], max_detections=16,
-                      dtype=dtype, device=device, seed=seed)
-    plate = PlateDetector(variant="n", input_shape=input_hw, max_detections=8,
-                          dtype=dtype, device=device, seed=seed)
-    return DesensitizationEngine(face, plate, mosaic_level=8)
 
 
 @torch.inference_mode()
@@ -104,16 +76,16 @@ def stage_times(engine, frames_np):
     work = frames.clone()
     host = torch.empty_like(pinned).pin_memory()
     return {
-        "h2d_frames": _median_ms(lambda: frames.copy_(pinned, non_blocking=True)),
-        "letterbox_canvas": _median_ms(lambda: letterbox_canvas_u8(frames, hw, formula=formula)),
-        "face_preprocess": _median_ms(lambda: preprocess_batch_device(canvas, hw, dtype=face.dtype)),
-        "face_net": _median_ms(lambda: face.net(x)),
-        "face_nms": _median_ms(lambda: batched_nms_padded(dets, face.confidence, face.nms_iou,
+        "h2d_frames": cuda_time_ms(lambda: frames.copy_(pinned, non_blocking=True)),
+        "letterbox_canvas": cuda_time_ms(lambda: letterbox_canvas_u8(frames, hw, formula=formula)),
+        "face_preprocess": cuda_time_ms(lambda: preprocess_batch_device(canvas, hw, dtype=face.dtype)),
+        "face_net": cuda_time_ms(lambda: face.net(x)),
+        "face_nms": cuda_time_ms(lambda: batched_nms_padded(dets, face.confidence, face.nms_iou,
                                                           face.max_detections)),
-        "face_program": _median_ms(lambda: face._detect_program(canvas, shapes)),
-        "plate_program": _median_ms(lambda: plate._detect_letterboxed_program(canvas, shapes, geom)),
-        "mosaic_kernel": _median_ms(lambda: mosaic_boxes_batch_cuda_(work, boxes, valid, 8)),
-        "d2h_frames": _median_ms(lambda: host.copy_(frames, non_blocking=True)),
+        "face_program": cuda_time_ms(lambda: face._detect_program(canvas, shapes)),
+        "plate_program": cuda_time_ms(lambda: plate._detect_letterboxed_program(canvas, shapes, geom)),
+        "mosaic_kernel": cuda_time_ms(lambda: mosaic_boxes_batch_cuda_(work, boxes, valid, 8)),
+        "d2h_frames": cuda_time_ms(lambda: host.copy_(frames, non_blocking=True)),
     }
 
 
@@ -158,21 +130,11 @@ def main(argv=None) -> int:
     engine = main_path_engine()
     rng = np.random.default_rng(1)
     frames = rng.integers(0, 256, (BATCH, HEIGHT, WIDTH, 3), dtype=np.uint8)
-    for _ in range(2):
-        engine.process_batch(frames)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    boxes = 0
-    for _ in range(args.batches):
-        res = engine.process_batch(frames)
-        boxes += res.num_faces + res.num_plates
-    fps = args.batches * BATCH / (time.perf_counter() - t0)
-    del res
+    fps, _ = engine_fps(engine, [frames] * args.batches, keep=False)
     # A caller that keeps every result keeps its pinned output buffers, so
     # each batch needs fresh page-locked memory.
-    t0 = time.perf_counter()
-    held = [engine.process_batch(frames) for _ in range(args.batches)]
-    fps_held = len(held) * BATCH / (time.perf_counter() - t0)
+    fps_held, held = engine_fps(engine, [frames] * args.batches, warmup=0)
+    boxes = sum(r.num_faces + r.num_plates for r in held)
     del held
     busy, top = profile(engine, frames, 3)
     print(json.dumps({
