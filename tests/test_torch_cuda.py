@@ -2,7 +2,11 @@
 
 Edge cases beyond chip_smoke.py's full-width ones: level 1, 1x1 and
 full-frame boxes, boxes wholly outside the frame or empty, many nested
-boxes, odd frame sizes, batch 1. Skipped without a CUDA device. This file
+boxes, odd frame sizes, batch 1; and what the kernel's design makes risky:
+many overlapping boxes, boxes that read what another writes, more boxes
+than one pass takes, uneven box counts per frame, frames whose rows are not
+16-byte aligned, repeat launches and host synchronisation. Skipped without
+a CUDA device. This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
 runs without tests/conftest.py:
 
@@ -37,8 +41,8 @@ def _boxes(rng, b, k, h, w):
 
 def _check(cuda, frames, boxes, valid, level):
     f = torch.from_numpy(frames).to(cuda)
-    bx = torch.from_numpy(boxes).to(cuda)
-    ok = torch.from_numpy(valid).to(cuda)
+    bx = torch.from_numpy(np.asarray(boxes, np.int32)).to(cuda)
+    ok = torch.from_numpy(np.asarray(valid, bool)).to(cuda)
     want = mosaic_boxes_batch(f, bx, ok, level)
     before = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
     got = cuda_mosaic.mosaic_boxes_batch_cuda_(f, bx, ok, level)
@@ -88,3 +92,116 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     cuda_mosaic.mosaic_boxes_batch_cuda_(frames, boxes, valid, 8)
     with pytest.raises(ValueError):
         cuda_mosaic.mosaic_boxes_batch_cuda_(frames[:, :, :8], boxes, valid, 8)
+
+
+@pytest.mark.parametrize("level", [3, 8])
+def test_kernel_many_overlapping_boxes(cuda, level):
+    """K = 64 boxes piled on the middle of the frame, each meeting most others."""
+    rng = np.random.default_rng(level)
+    h, w = 540, 960
+    frames = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+    cx = rng.integers(w // 3, 2 * w // 3, (2, 64))
+    cy = rng.integers(h // 3, 2 * h // 3, (2, 64))
+    hw = rng.integers(10, w // 3, (2, 64))
+    hh = rng.integers(10, h // 3, (2, 64))
+    boxes = np.stack([cx - hw, cy - hh, cx + hw, cy + hh], -1)
+    _check(cuda, frames, boxes, rng.random((2, 64)) > 0.05, level)
+
+
+def test_kernel_uneven_box_counts(cuda):
+    """B = 16: frame i has i % 6 valid boxes, so several frames have none."""
+    rng = np.random.default_rng(16)
+    h, w = 270, 480
+    frames = rng.integers(0, 256, (16, h, w, 3), dtype=np.uint8)
+    boxes, _ = _boxes(rng, 16, 8, h, w)
+    valid = np.arange(8)[None, :] < (np.arange(16) % 6)[:, None]
+    _check(cuda, frames, boxes, valid, 8)
+
+
+@pytest.mark.parametrize("last", [[0, 0, 300, 200], [-40, -40, 340, 260]], ids=["exact", "spilling"])
+def test_kernel_frame_covered_by_last_box(cuda, last):
+    rng = np.random.default_rng(1)
+    frames = rng.integers(0, 256, (2, 200, 300, 3), dtype=np.uint8)
+    boxes, valid = _boxes(rng, 2, 6, 200, 300)
+    boxes = np.concatenate([boxes, np.array([[last]] * 2, np.int32)], 1)
+    valid = np.concatenate([valid, np.ones((2, 1), bool)], 1)
+    _check(cuda, frames, boxes, valid, 8)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3])
+def test_kernel_boxes_read_each_other(cuda, channels):
+    """Frame 0: the second box reads where the first wrote. Frame 1, the
+    reverse order: the first box reads where the second then writes."""
+    rng = np.random.default_rng(channels)
+    frames = rng.integers(0, 256, (2, 203, 310, channels), dtype=np.uint8)
+    pair = [[0, 0, 170, 150], [120, 95, 310, 203]]
+    boxes = [pair, pair[::-1]]
+    _check(cuda, frames, boxes, np.ones((2, 2), bool), 8)
+
+
+@pytest.mark.parametrize("level", [50, 400])
+def test_kernel_level_beyond_box_and_frame(cuda, level):
+    """Every box is smaller than the level, and at 400 so is the frame."""
+    rng = np.random.default_rng(level)
+    h, w = 40, 333
+    frames = rng.integers(0, 256, (3, h, w, 2), dtype=np.uint8)
+    boxes, valid = _boxes(rng, 3, 12, h, w)
+    _check(cuda, frames, boxes, valid, level)
+
+
+def test_kernel_boxes_in_passes(cuda):
+    """K = 300 takes three passes of the kernel, each on the frame the one
+    before it left."""
+    rng = np.random.default_rng(300)
+    h, w = 180, 320
+    frames = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+    boxes, valid = _boxes(rng, 2, 300, h, w)
+    _check(cuda, frames, boxes, valid, 8)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_kernel_unaligned_frames(cuda, channels):
+    """A contiguous batch one byte into its storage: the scatter copies a
+    byte at a time."""
+    rng = np.random.default_rng(channels + 7)
+    h, w = 96, 256
+    data = rng.integers(0, 256, 2 * h * w * channels + 1, dtype=np.uint8)
+    boxes, valid = _boxes(rng, 2, 10, h, w)
+    storage = torch.from_numpy(data).to(cuda)
+    frames = storage[1:].view(2, h, w, channels)
+    assert frames.is_contiguous() and frames.data_ptr() % 16 != 0
+    bx, ok = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
+    want = mosaic_boxes_batch(frames, bx, ok, 8)
+    cuda_mosaic.mosaic_boxes_batch_cuda_(frames, bx, ok, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(frames, want)
+    assert storage[0].item() == data[0]
+
+
+def test_kernel_is_deterministic(cuda):
+    rng = np.random.default_rng(2)
+    h, w = 1080, 1920
+    frames = torch.from_numpy(rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)).to(cuda)
+    boxes, valid = _boxes(rng, 2, 24, h, w)
+    bx, ok = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
+    first = cuda_mosaic.mosaic_boxes_batch_cuda_(frames.clone(), bx, ok, 8)
+    second = cuda_mosaic.mosaic_boxes_batch_cuda_(frames.clone(), bx, ok, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, mosaic_boxes_batch(frames, bx, ok, 8))
+
+
+def test_kernel_call_does_not_wait_for_the_device(cuda):
+    """The boxes stay on the device: after a first call has built the
+    library and the table, a call makes no synchronising CUDA call."""
+    frames = torch.zeros((2, 64, 96, 3), dtype=torch.uint8, device=cuda)
+    boxes = torch.tensor([[[5, 5, 60, 40]], [[-9, 3, 50, 99]]], dtype=torch.int32, device=cuda)
+    valid = torch.ones((2, 1), dtype=torch.bool, device=cuda)
+    cuda_mosaic.mosaic_boxes_batch_cuda_(frames, boxes, valid, 8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cuda_mosaic.mosaic_boxes_batch_cuda_(frames, boxes, valid, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -3,12 +3,16 @@
 Same numpy inputs into: the port's plain PyTorch mosaic (the oracle the
 CUDA kernel is held against on the card), JAX ``mosaic_boxes_batch`` (XLA
 scan), JAX ``mosaic_boxes_batch_pallas`` in interpret mode, and the cv2
-host reference. All bitwise.
+host reference. All bitwise. Then a numpy mirror of the CUDA kernel's own
+rule (snapshot of source rows, tiles, reachable-box lists, per-pixel
+walks) against the plain mosaic, since the kernel itself runs only on a
+card.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import jax.numpy as jnp
 
@@ -180,11 +184,120 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("level", [1, 2, 3, 4, 8, 12, 16])
 def test_kernel_precondition_holds_for_1080p(level):
-    """The kernel rewrites a box in place from its last element backwards;
-    that is exact only if every source offset T[b][t] <= t. The wrapper
-    checks it per table; here for every extent of a 1080p frame."""
+    """The kernel bounds the sources of a run of rows or columns of a box by
+    the sources of the run's first and last; that is exact only if every row
+    of T is non-decreasing and stays inside its extent. The wrapper checks
+    it per table; here for every extent of a 1080p frame."""
     table = cuda_mosaic._device_table(level, 1920, torch.device("cpu"))
     assert table.shape == (1921, 1920) and table.dtype == torch.int16
+
+
+def _kernel_mirror(frames, boxes, valid, level, tile_rows=32, tile_cols=None, max_boxes=128):
+    """numpy mirror of csrc/mosaic.cu on a (B, H, W, C) batch: passes of
+    ``max_boxes`` boxes. In each, the snapshot copies every box's source rows
+    inside its columns into a scratch frame that holds junk elsewhere. Then,
+    for each tile of ``tile_rows`` rows by ``tile_cols`` pixels (the
+    kernel's: 256 for C = 1, else 128), the list of reachable boxes, last
+    first, from a rectangle grown by the sources of its part of each box it
+    meets; a tile with none stays as it is. Then each pixel's walk over that
+    list: a pixel whose q is not p takes q's bytes from the scratch, the
+    others keep their own."""
+    bsz, h, w, c = frames.shape
+    tile_cols = tile_cols or (256 if c == 1 else 128)
+    table = composed_mosaic_table(level, max(h, w)).astype(np.int64)
+    x1, x2 = np.clip(boxes[..., 0], 0, w), np.clip(boxes[..., 2], 0, w)
+    y1, y2 = np.clip(boxes[..., 1], 0, h), np.clip(boxes[..., 3], 0, h)
+    ok = valid & (x2 > x1) & (y2 > y1)
+    clipped = np.where(ok[..., None], np.stack([x1, y1, x2, y2], -1), 0)
+    out = frames.copy()
+    for k0 in range(0, boxes.shape[1], max_boxes):
+        before = out.copy()
+        snapshot = before ^ 0x5A  # junk wherever the snapshot does not copy
+        for f in range(bsz):
+            bx = clipped[f, k0:k0 + max_boxes]
+            for bx1, by1, bx2, by2 in bx[ok[f, k0:k0 + max_boxes]]:
+                rows = np.unique(by1 + table[by2 - by1][: by2 - by1])
+                snapshot[f, rows, bx1:bx2] = before[f, rows, bx1:bx2]
+            for row0 in range(0, h, tile_rows):
+                for col0 in range(0, w, tile_cols):
+                    ry1, ry2, rx1, rx2 = row0, min(row0 + tile_rows, h), col0, min(col0 + tile_cols, w)
+                    rows, cols = np.arange(ry1, ry2), np.arange(rx1, rx2)
+                    reach = []
+                    for bx1, by1, bx2, by2 in bx[::-1]:
+                        if bx1 >= rx2 or bx2 <= rx1 or by1 >= ry2 or by2 <= ry1:
+                            continue
+                        ty, tx = table[by2 - by1], table[bx2 - bx1]
+                        ry1, ry2 = (min(ry1, by1 + ty[max(ry1, by1) - by1]),
+                                    max(ry2, by1 + ty[min(ry2, by2) - 1 - by1] + 1))
+                        rx1, rx2 = (min(rx1, bx1 + tx[max(rx1, bx1) - bx1]),
+                                    max(rx2, bx1 + tx[min(rx2, bx2) - 1 - bx1] + 1))
+                        reach.append((bx1, by1, bx2, by2))
+                    if not reach:
+                        continue
+                    qy, qx = np.meshgrid(rows, cols, indexing="ij")
+                    for bx1, by1, bx2, by2 in reach:
+                        inside = (qx >= bx1) & (qx < bx2) & (qy >= by1) & (qy < by2)
+                        qy[inside] = by1 + table[by2 - by1][qy[inside] - by1]
+                        qx[inside] = bx1 + table[bx2 - bx1][qx[inside] - bx1]
+                    moved = (qy != rows[:, None]) | (qx != cols)
+                    tile = out[f, rows[0]:rows[-1] + 1, cols[0]:cols[-1] + 1]
+                    tile[moved] = snapshot[f][qy[moved], qx[moved]]
+    return out
+
+
+MIRROR_H, MIRROR_W = 96, 112
+MIRROR_CASES = {
+    # each box overlaps the next, so sources pass through several boxes
+    "chain": [[5, 5, 40, 37], [30, 20, 70, 61], [55, 40, 100, 90], [10, 50, 60, 95], [0, 30, 112, 44]],
+    # the first box lies wholly inside the second, which owns all of it
+    "covered": [[20, 20, 50, 50], [10, 10, 70, 70], [60, 0, 112, 30]],
+    # extents 10, 23, 37, 91: no multiple of 3 or 8, so cells read back
+    "odd_extents": [[3, 4, 13, 14], [40, 7, 63, 30], [2, 50, 39, 87], [8, 2, 99, 93]],
+    # the second box's sources lie where the first writes, and the reverse
+    "read_each_other": [[0, 0, 60, 60], [50, 50, 112, 96], [30, 30, 80, 80]],
+}
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3])
+@pytest.mark.parametrize("level", [1, 3, 8])
+@pytest.mark.parametrize("name", sorted(MIRROR_CASES))
+def test_kernel_rule_mirror_bitwise_vs_plain(name, level, channels):
+    """The kernel's rule, mirrored in numpy, against the plain in-order
+    mosaic: at the kernel's tile size, and at a small one with boxes in
+    passes of two, so that walks cross many tiles and passes."""
+    rng = np.random.default_rng(sorted(MIRROR_CASES).index(name) * 10 + level)
+    frames = rng.integers(0, 256, (2, MIRROR_H, MIRROR_W, channels), dtype=np.uint8)
+    bl = MIRROR_CASES[name]
+    boxes = np.array([bl, bl[::-1]], np.int32)
+    valid = np.ones(boxes.shape[:2], bool)
+    valid[1, 1] = False
+    want = _port(frames, boxes, valid, level)
+    np.testing.assert_array_equal(_kernel_mirror(frames, boxes, valid, level), want)
+    np.testing.assert_array_equal(
+        _kernel_mirror(frames, boxes, valid, level, tile_rows=4, tile_cols=5, max_boxes=2), want
+    )
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(
+    seed=st.integers(0, 2**32 - 1),
+    channels=st.sampled_from([1, 2, 3]),
+    level=st.sampled_from([1, 2, 3, 5, 8, 40]),
+    k=st.integers(1, 12),
+)
+def test_kernel_rule_mirror_random_boxes(seed, channels, level, k):
+    """Random overlapping, spilling, invalid and empty boxes; level 40 is
+    larger than most boxes and than the frame."""
+    rng = np.random.default_rng(seed)
+    h, w = int(rng.integers(1, 40)), int(rng.integers(1, 48))
+    frames = rng.integers(0, 256, (1, h, w, channels), dtype=np.uint8)
+    x1, y1 = rng.integers(-8, w + 2, (1, k)), rng.integers(-8, h + 2, (1, k))
+    boxes = np.stack(
+        [x1, y1, x1 + rng.integers(0, w + 8, (1, k)), y1 + rng.integers(0, h + 8, (1, k))], -1
+    ).astype(np.int32)
+    valid = rng.random((1, k)) > 0.2
+    got = _kernel_mirror(frames, boxes, valid, level, tile_rows=3, tile_cols=4, max_boxes=5)
+    np.testing.assert_array_equal(got, _port(frames, boxes, valid, level))
 
 
 def test_gaussian_blur_boxes_matches_jax():

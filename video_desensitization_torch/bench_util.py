@@ -1,6 +1,6 @@
 """What the scripts that drive the main path on a card share: the main-path
-engine with random weights, CUDA-event timing, and the frames/s loop.
-Used by ``chip_smoke.py`` and ``profile_engine``."""
+engine with random weights, CUDA-event and profiler timing, and the
+frames/s loop. Used by ``chip_smoke.py`` and ``profile_engine``."""
 
 from __future__ import annotations
 
@@ -38,6 +38,55 @@ def cuda_time_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, reps: int = 50) -> tuple[float, float]:
+    """(event ms, host ms) per call over ``reps`` back-to-back calls of
+    ``fn`` after one warm-up call: one CUDA event pair around them all, and
+    the host clock of their enqueueing. Where the host enqueues a call more
+    slowly than the device runs it, the first is the host's time too."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host_s * 1e3 / reps
+
+
+def device_time_us(evt) -> float:
+    """Self device time of one ``torch.profiler`` key-average entry."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profiled_device_ms(fn, reps: int = 50):
+    """Device time per call of ``fn``: the device time of every kernel and
+    copy that ``torch.profiler`` saw over ``reps`` calls (after one warm-up
+    call), summed and divided by ``reps``. Gaps between kernels do not
+    count, so the host's time cannot leak in. None when the profiler
+    reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total_us = sum(
+        device_time_us(e) for e in prof.key_averages()
+        if getattr(e, "device_type", None) == cuda
+    )
+    return total_us / 1e3 / reps if total_us else None
 
 
 def engine_fps(engine, batches, warmup: int = 2, keep: bool = True):

@@ -72,22 +72,28 @@ def build_library(source: Path = SOURCE) -> Path:
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     fn = lib.vdt_mosaic_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    size = lib.vdt_mosaic_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 4
+    size.restype = ctypes.c_longlong
     return lib
 
 
 @lru_cache(maxsize=8)
 def _device_table(level: int, maxdim: int, device: torch.device) -> torch.Tensor:
-    """The composed table on ``device``, after checking the property the
-    kernel's in-place order relies on: every source offset T[b][t] <= t."""
+    """The composed table on ``device``, after checking the properties the
+    kernel's reachable-box lists rely on: every row of T is non-decreasing,
+    and T[b][t] lies in [0, b) for t < b (a box's sources lie inside it)."""
     if maxdim > np.iinfo(np.int16).max:
         raise ValueError(f"frame dimension {maxdim} exceeds the int16 table")
     table = composed_mosaic_table(level, maxdim)
-    t = np.arange(maxdim)
-    for b in range(1, maxdim + 1):
-        if np.any(table[b, :b] > t[:b]):
-            raise ValueError(f"mosaic table level {level} extent {b} reads ahead")
+    if np.any(np.diff(table, axis=1) < 0):
+        raise ValueError(f"mosaic table level {level} has a decreasing row")
+    extent = np.arange(maxdim + 1)[:, None]
+    inside = np.arange(maxdim)[None, :] < extent
+    if np.any(inside & ((table < 0) | (table >= extent))):
+        raise ValueError(f"mosaic table level {level} reads outside its box")
     return torch.from_numpy(table.copy()).to(device)
 
 
@@ -102,8 +108,11 @@ def mosaic_boxes_batch_cuda_(
     >= 1. boxes: (B, K, 4) int pixel xyxy, unclipped ok; valid: (B, K) bool.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch the
-    kernel on the current stream, one launch per call, counted in
-    ``mosaic_boxes_batch_cuda_.launches``.
+    kernel on the current stream, counted once per call in
+    ``mosaic_boxes_batch_cuda_.launches``: two CUDA kernels per 128 boxes of
+    K (a snapshot of the boxes' source rows and each tile's list of boxes
+    into scratch, then the in-place write). The boxes are never read on the
+    host, so the call does not wait for the device.
     """
     b, h, w, c = frames.shape
     if c not in (1, 2, 3):
@@ -118,15 +127,19 @@ def mosaic_boxes_batch_cuda_(
         return mosaic_boxes_batch_(frames, boxes, valid, level)
     if frames.device.type != "cuda":
         raise ValueError(f"unsupported device {frames.device}")
-    if b == 0 or boxes.shape[1] == 0:
+    if frames.numel() == 0 or boxes.shape[1] == 0:
         return frames  # nothing to launch
     boxes = boxes.to(device=frames.device, dtype=torch.int32).contiguous()
     valid = valid.to(device=frames.device, dtype=torch.bool).contiguous()
     maxdim = max(h, w)
     table = _device_table(level, maxdim, frames.device)
-    err = load_library().vdt_mosaic_launch(
+    lib = load_library()
+    scratch = torch.empty(
+        lib.vdt_mosaic_scratch_bytes(b, h, w, c), dtype=torch.uint8, device=frames.device
+    )
+    err = lib.vdt_mosaic_launch(
         frames.data_ptr(), boxes.data_ptr(), valid.data_ptr(), table.data_ptr(),
-        b, h, w, c, boxes.shape[1], maxdim,
+        scratch.data_ptr(), b, h, w, c, boxes.shape[1], maxdim,
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
     if err != 0:

@@ -9,7 +9,10 @@ frames per batch, prints one JSON object with:
     included), each result dropped before the next batch;
   * ``e2e_fps_results_held``: the same with every result kept, as a caller
     collecting a job's output does;
-  * ``stage_ms``: each stage of the program alone, CUDA-event median;
+  * ``stage_ms``: each stage of the program alone, CUDA-event median of
+    one call each; ``mosaic_kernel_device`` is the mosaic's device time
+    alone (``torch.profiler`` over 50 calls), without the host's gap
+    between the events and the launch;
   * ``host_syncs_per_batch``: synchronising calls in one ``process_batch``
     (CUDA sync debug mode), which the NMS fixpoint rounds dominate;
   * ``device_busy_share`` and the top kernels by device time from
@@ -29,16 +32,15 @@ import warnings
 import numpy as np
 import torch
 
-from video_desensitization_torch.bench_util import cuda_time_ms, engine_fps, main_path_engine
+from video_desensitization_torch.bench_util import (
+    cuda_time_ms,
+    device_time_us,
+    engine_fps,
+    main_path_engine,
+    profiled_device_ms,
+)
 
 BATCH, HEIGHT, WIDTH = 8, 1080, 1920
-
-
-def _device_time_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
 
 
 @torch.inference_mode()
@@ -85,6 +87,9 @@ def stage_times(engine, frames_np):
         "face_program": cuda_time_ms(lambda: face._detect_program(canvas, shapes)),
         "plate_program": cuda_time_ms(lambda: plate._detect_letterboxed_program(canvas, shapes, geom)),
         "mosaic_kernel": cuda_time_ms(lambda: mosaic_boxes_batch_cuda_(work, boxes, valid, 8)),
+        "mosaic_kernel_device": profiled_device_ms(
+            lambda: mosaic_boxes_batch_cuda_(work, boxes, valid, 8)
+        ),
         "d2h_frames": cuda_time_ms(lambda: host.copy_(frames, non_blocking=True)),
     }
 
@@ -110,12 +115,12 @@ def profile(engine, frames_np, batches: int):
         wall_us = (time.perf_counter() - t0) * 1e6
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages() if getattr(e, "device_type", None) == cuda]
-    busy_us = sum(_device_time_us(e) for e in kernels)
+    busy_us = sum(device_time_us(e) for e in kernels)
     if busy_us == 0.0:
         return "not measured", []
-    top = sorted(kernels, key=_device_time_us, reverse=True)[:12]
+    top = sorted(kernels, key=device_time_us, reverse=True)[:12]
     return busy_us / wall_us, [
-        {"kernel": e.key[:90], "ms_per_batch": _device_time_us(e) / 1e3 / batches, "calls": e.count}
+        {"kernel": e.key[:90], "ms_per_batch": device_time_us(e) / 1e3 / batches, "calls": e.count}
         for e in top
     ]
 
