@@ -9,9 +9,9 @@ Phases, each printing one line and asserting:
      (nvcc, sm_90a) into video_desensitization_torch/_build/;
   3. kernel: each kernel against its plain PyTorch version on the same CUDA
      input, bitwise, at 1080p batch 8 (C=3, levels 8 and 4), a C=1 1080p
-     plane and a C=2 540x960 plane, with the memory bound and the kernel's
-     device time without the host (torch.profiler over many calls), beside
-     its host time per call;
+     plane and a C=2 540x960 plane, with the memory bound, the kernel's
+     device time and CUDA kernels per call (torch.profiler over many calls),
+     and its host time per call;
   4. engine: the full-width main path -- RetinaFace-ResNet50 + YOLOv8n at
      640, bf16, random weights from seed 0, mosaic level 8 -- blurring a few
      8x1080x1920 RGB batches through process_batch, with the kernel's launch
@@ -38,7 +38,6 @@ BATCH, HEIGHT, WIDTH = 8, 1080, 1920
 ENGINE_BATCHES = 6
 WARMUP_BATCHES = 2
 TIMED_CALLS = 50
-CUDA_KERNELS_PER_CALL = 2  # prepare and apply, for up to 128 boxes a frame
 
 
 def check(ok, message="check failed") -> None:
@@ -99,18 +98,16 @@ def synthetic_boxes(rng, b, k, h, w):
 
 def check_mosaic(frames, boxes, valid, level):
     """Kernel vs plain on copies of ``frames`` (B, H, W, C) on the card.
-    Returns a dict of the measured numbers: ``ms`` is the kernel's device
-    time per call from ``torch.profiler`` over TIMED_CALLS calls (back-to-
-    back CUDA events if the profiler sees no device time), ``host_ms`` the
-    wrapper's host time per call, ``per_call_ms`` one event pair around a
-    single call, as first measured, which holds the host's gap before the
-    launch. Repeat calls on one working copy cost the same as the first:
-    the work depends on the boxes only."""
+    Returns a dict of the measured numbers: ``ms`` and ``kernels_per_call``
+    are the kernel's device time and CUDA kernels per call from
+    ``torch.profiler`` over TIMED_CALLS calls, ``host_ms`` the wrapper's host
+    time per call. Repeat calls on one working copy cost the same as the
+    first: the work depends on the boxes only."""
     import torch
 
     from video_desensitization_torch.bench_util import (
-        back_to_back_ms,
         cuda_time_ms,
+        host_ms_per_call,
         profiled_device_ms,
     )
     from video_desensitization_torch.ops import cuda_mosaic
@@ -129,15 +126,14 @@ def check_mosaic(frames, boxes, valid, level):
     def call():
         cuda_mosaic.mosaic_boxes_batch_cuda_(work, boxes, valid, level)
 
-    events_ms, host_ms = back_to_back_ms(call, TIMED_CALLS)
-    device_ms = profiled_device_ms(call, TIMED_CALLS)
+    device_ms, kernels_per_call = profiled_device_ms(call, TIMED_CALLS)
+    check(device_ms is not None, "the profiler saw no device time")
+    check(kernels_per_call > 0, "the profiler saw no CUDA kernel")
     return {
         "max_abs_err": max_err,
-        "ms": events_ms if device_ms is None else device_ms,
-        "ms_from": "events" if device_ms is None else "profiler",
-        "events_ms": events_ms,
-        "host_ms": host_ms,
-        "per_call_ms": cuda_time_ms(call, 10),
+        "ms": device_ms,
+        "kernels_per_call": kernels_per_call,
+        "host_ms": host_ms_per_call(call, TIMED_CALLS),
         "plain_ms": cuda_time_ms(lambda: mosaic_boxes_batch_(work, boxes, valid, level), 3),
         "bound_ms": mosaic_bound_ms(frames, boxes, valid, level),
         "boxes": int(valid.sum()),
@@ -146,9 +142,9 @@ def check_mosaic(frames, boxes, valid, level):
 
 def timing_text(r) -> str:
     return (
-        f"{r['ms']:.4f} ms device ({r['ms_from']}; back-to-back events {r['events_ms']:.4f}, "
-        f"host {r['host_ms']:.4f}, one event pair {r['per_call_ms']:.4f} per call; "
-        f"plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.6f})"
+        f"{r['ms']:.4f} ms device in {r['kernels_per_call']:g} CUDA kernels "
+        f"(profiler; host {r['host_ms']:.4f} ms) per call; "
+        f"plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.6f}"
     )
 
 
@@ -370,7 +366,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "host_ms": engine["host_ms"],
-        "cuda_kernels_per_call": CUDA_KERNELS_PER_CALL,
+        "cuda_kernels_per_call": engine["kernels_per_call"],
     }
     print(json.dumps({"kernels": [kernel]}))
     print(smi)

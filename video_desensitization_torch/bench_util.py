@@ -40,23 +40,18 @@ def cuda_time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def back_to_back_ms(fn, reps: int = 50) -> tuple[float, float]:
-    """(event ms, host ms) per call over ``reps`` back-to-back calls of
-    ``fn`` after one warm-up call: one CUDA event pair around them all, and
-    the host clock of their enqueueing. Where the host enqueues a call more
-    slowly than the device runs it, the first is the host's time too."""
+def host_ms_per_call(fn, reps: int = 50) -> float:
+    """Host ms per call over ``reps`` back-to-back calls of ``fn`` after one
+    warm-up call: the host clock of their enqueueing, which does not wait
+    for the device unless ``fn`` does."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
     host_s = time.perf_counter() - t0
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, host_s * 1e3 / reps
+    torch.cuda.synchronize()
+    return host_s * 1e3 / reps
 
 
 def device_time_us(evt) -> float:
@@ -67,12 +62,13 @@ def device_time_us(evt) -> float:
     return 0.0
 
 
-def profiled_device_ms(fn, reps: int = 50):
-    """Device time per call of ``fn``: the device time of every kernel and
-    copy that ``torch.profiler`` saw over ``reps`` calls (after one warm-up
-    call), summed and divided by ``reps``. Gaps between kernels do not
-    count, so the host's time cannot leak in. None when the profiler
-    reports no device time."""
+def profiled_device_ms(fn, reps: int = 50) -> tuple[float | None, float]:
+    """(device ms, CUDA kernels) per call of ``fn`` from ``torch.profiler``
+    over ``reps`` calls (after one warm-up call). The device ms sum the
+    device time of every kernel and copy the profiler saw, so gaps between
+    them do not count and the host's time cannot leak in; None when the
+    profiler reports no device time. The kernels count the launches of the
+    device-side entries other than copies and fills."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -82,11 +78,10 @@ def profiled_device_ms(fn, reps: int = 50):
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    total_us = sum(
-        device_time_us(e) for e in prof.key_averages()
-        if getattr(e, "device_type", None) == cuda
-    )
-    return total_us / 1e3 / reps if total_us else None
+    device = [e for e in prof.key_averages() if getattr(e, "device_type", None) == cuda]
+    total_us = sum(device_time_us(e) for e in device)
+    kernels = sum(e.count for e in device if not e.key.startswith(("Memcpy", "Memset")))
+    return (total_us / 1e3 / reps if total_us else None), kernels / reps
 
 
 def engine_fps(engine, batches, warmup: int = 2, keep: bool = True):

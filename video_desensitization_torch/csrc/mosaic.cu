@@ -31,6 +31,10 @@
 // it: a pixel of one of that box's max(1, b / level) source rows, inside its
 // columns. prepare_kernel copies those rows of every box into a scratch
 // frame (a row that two boxes share is copied twice with the same bytes).
+// The scratch frame is as large as the batch (about 50 MB at 8 x 1080p RGB)
+// although only those rows are filled, on purpose: a pixel lies at its own
+// offset there, so the write needs no second index. A compact snapshot would
+// save that memory.
 // apply_kernel then writes every tile of the frame that a box meets: each
 // pixel gets q's bytes from the scratch, or its own when q = p. It reads no
 // pixel that another block writes, so it writes in place. The traffic is the bound's,

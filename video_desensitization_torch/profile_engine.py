@@ -10,9 +10,10 @@ frames per batch, prints one JSON object with:
   * ``e2e_fps_results_held``: the same with every result kept, as a caller
     collecting a job's output does;
   * ``stage_ms``: each stage of the program alone, CUDA-event median of
-    one call each; ``mosaic_kernel_device`` is the mosaic's device time
-    alone (``torch.profiler`` over 50 calls), without the host's gap
-    between the events and the launch;
+    one call each, except ``mosaic_kernel_device``: the mosaic's device
+    time alone (``torch.profiler`` over 50 calls), since one event pair
+    around a call of tens of microseconds holds the host's gap before the
+    launch;
   * ``host_syncs_per_batch``: synchronising calls in one ``process_batch``
     (CUDA sync debug mode), which the NMS fixpoint rounds dominate;
   * ``device_busy_share`` and the top kernels by device time from
@@ -86,10 +87,9 @@ def stage_times(engine, frames_np):
                                                           face.max_detections)),
         "face_program": cuda_time_ms(lambda: face._detect_program(canvas, shapes)),
         "plate_program": cuda_time_ms(lambda: plate._detect_letterboxed_program(canvas, shapes, geom)),
-        "mosaic_kernel": cuda_time_ms(lambda: mosaic_boxes_batch_cuda_(work, boxes, valid, 8)),
         "mosaic_kernel_device": profiled_device_ms(
             lambda: mosaic_boxes_batch_cuda_(work, boxes, valid, 8)
-        ),
+        )[0],
         "d2h_frames": cuda_time_ms(lambda: host.copy_(frames, non_blocking=True)),
     }
 
