@@ -17,7 +17,16 @@ Phases, each printing one line and asserting:
      8x1080x1920 RGB batches through process_batch, with the kernel's launch
      count and the blurred frames held against the plain mosaic of the
      engine's own boxes;
-  5. reference: the card against the CPU on the same weights in float32:
+  5. yuv: the same engine on 8x1620x1920 I420 batches through
+     process_batch_yuv: frames/s beside the RGB path's, two kernel calls a
+     batch, the blurred I420 frames held bitwise against the plain I420
+     mosaic of the engine's own boxes, the same detections as process_batch
+     on the cv2-exact RGB of the same frames, and the kernel's device time
+     on the Y call and the chroma call beside each one's bound;
+  6. stream: the CLI (cli.main.main) at full width on a short synthetic
+     1080p video, with transfer = yuv420 and then rgb, every frame back,
+     the kernel's calls counted, and the codec path (native libav or cv2);
+  7. reference: the card against the CPU on the same weights in float32:
      both networks, then the rest of the engine's program (letterbox
      canvas, decode, NMS, inverse letterbox, box order);
 then a "kernels" JSON line, the nvidia-smi line, and the result line.
@@ -36,6 +45,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 SECTOR_BYTES = 32  # the card reads and writes memory in 32-byte sectors
 BATCH, HEIGHT, WIDTH = 8, 1080, 1920
 ENGINE_BATCHES = 6
+STREAM_FRAMES = 24
 WARMUP_BATCHES = 2
 TIMED_CALLS = 50
 
@@ -198,15 +208,34 @@ def phase_kernel() -> None:
     print("phase kernel: " + " | ".join(parts), flush=True)
 
 
-def phase_engine() -> dict:
+def kept_boxes(res, batch):
+    """The engine's kept boxes of one result, faces then plates, as padded
+    (B, K, 4) int32 and (B, K) bool tensors on the card (the engine casts
+    its float boxes to int32 the same way)."""
     import numpy as np
     import torch
 
-    from video_desensitization_torch.bench_util import engine_fps, main_path_engine
+    kept = [f + p for f, p in zip(res.face_boxes, res.plate_boxes)]
+    k = max(1, max(len(b) for b in kept))
+    boxes = np.zeros((batch, k, 4), np.float32)
+    valid = np.zeros((batch, k), bool)
+    for i, bl in enumerate(kept):
+        if bl:
+            arr = np.asarray(bl, np.float32)
+            check(np.isfinite(arr).all())
+            boxes[i, : len(bl)] = arr
+            valid[i, : len(bl)] = True
+    return torch.from_numpy(boxes.astype(np.int32)).cuda(), torch.from_numpy(valid).cuda()
+
+
+def phase_engine(engine) -> dict:
+    import numpy as np
+    import torch
+
+    from video_desensitization_torch.bench_util import engine_fps
     from video_desensitization_torch.ops import cuda_mosaic
     from video_desensitization_torch.ops.mosaic import mosaic_boxes_batch_
 
-    engine = main_path_engine()
     rng = np.random.default_rng(1)
     batches = [
         rng.integers(0, 256, (BATCH, HEIGHT, WIDTH, 3), dtype=np.uint8)
@@ -221,19 +250,8 @@ def phase_engine() -> dict:
     n_boxes = 0
     for frames, res in zip(batches, results):
         check(res.frames.shape == frames.shape and res.frames.dtype == np.uint8)
-        kept = [f + p for f, p in zip(res.face_boxes, res.plate_boxes)]
-        k = max(1, max(len(b) for b in kept))
-        boxes = np.zeros((BATCH, k, 4), np.float32)
-        valid = np.zeros((BATCH, k), bool)
-        for i, bl in enumerate(kept):
-            if bl:
-                arr = np.asarray(bl, np.float32)
-                check(np.isfinite(arr).all())
-                boxes[i, : len(bl)] = arr
-                valid[i, : len(bl)] = True
-        n_boxes += int(valid.sum())
-        dev_boxes = torch.from_numpy(boxes.astype(np.int32)).cuda()
-        dev_valid = torch.from_numpy(valid).cuda()
+        dev_boxes, dev_valid = kept_boxes(res, BATCH)
+        n_boxes += int(dev_valid.sum())
         want = mosaic_boxes_batch_(
             torch.from_numpy(frames).cuda(), dev_boxes, dev_valid, engine.mosaic_level
         )
@@ -251,7 +269,112 @@ def phase_engine() -> dict:
         f"{timing_text(timing)}",
         flush=True,
     )
-    return {**timing, "launches": launches}
+    return {**timing, "launches": launches, "fps": fps}
+
+
+def phase_yuv(engine, rgb_fps: float) -> dict:
+    """The engine on I420 batches (B, H*3/2, W) through process_batch_yuv."""
+    import numpy as np
+    import torch
+
+    from video_desensitization_torch.bench_util import engine_fps
+    from video_desensitization_torch.ops import cuda_mosaic
+    from video_desensitization_torch.ops.mosaic import mosaic_i420_batch
+    from video_desensitization_torch.ops.yuv import i420_to_rgb_u8
+
+    rng = np.random.default_rng(4)
+    shape = (BATCH, HEIGHT * 3 // 2, WIDTH)
+    batches = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(ENGINE_BATCHES)]
+    cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
+    fps, results = engine_fps(engine, batches, warmup=WARMUP_BATCHES, yuv=True)
+    launches = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+    runs = WARMUP_BATCHES + ENGINE_BATCHES
+    check(launches == 2 * runs, f"mosaic kernel called {launches}x in {runs} I420 batches, not 2 a batch")
+
+    n_boxes, box_err = 0, 0.0
+    for frames, res in zip(batches, results):
+        check(res.frames.shape == shape and res.frames.dtype == np.uint8)
+        dev_boxes, dev_valid = kept_boxes(res, BATCH)
+        n_boxes += int(dev_valid.sum())
+        dev_frames = torch.from_numpy(frames).cuda()
+        want = mosaic_i420_batch(dev_frames, dev_boxes, dev_valid, engine.mosaic_level)
+        check(torch.equal(torch.from_numpy(res.frames).cuda(), want), "I420 engine != plain I420 mosaic")
+        on_rgb = engine.process_batch(i420_to_rgb_u8(dev_frames, HEIGHT, WIDTH).cpu().numpy())
+        check(on_rgb.num_faces == res.num_faces and on_rgb.num_plates == res.num_plates,
+              "I420 and RGB programs kept different boxes")
+        for a, b in zip(on_rgb.face_boxes + on_rgb.plate_boxes, res.face_boxes + res.plate_boxes):
+            a, b = (np.asarray(x, np.float64).reshape(-1, 4) for x in (a, b))
+            check(a.shape == b.shape, "I420 and RGB programs kept different boxes in a frame")
+            if a.size:
+                box_err = max(box_err, float(np.abs(a - b).max()))
+        check(box_err <= 1e-3, f"I420 boxes differ from RGB boxes by {box_err} px")
+
+    # The kernel's two calls on the last batch's boxes, each on its view.
+    calls = cuda_mosaic.i420_kernel_calls(dev_frames, dev_boxes, dev_valid, engine.mosaic_level)
+    y, uv = (check_mosaic(*call) for call in calls)
+    print(
+        f"phase yuv: resnet50+yolov8n 640 bf16, {ENGINE_BATCHES}x{BATCH}x{HEIGHT * 3 // 2}x{WIDTH} "
+        f"I420: {fps:.2f} frames/s (results held; RGB {rgb_fps:.2f} in the engine phase of this "
+        f"run), {n_boxes / (ENGINE_BATCHES * BATCH):.2f} boxes/frame, mosaic calls {launches} in "
+        f"{runs} batches (2 a batch: Y, then U and V), blurred I420 == plain I420 mosaic of the "
+        f"engine's boxes, detections == process_batch on the cv2-exact RGB (boxes within "
+        f"{box_err:.2e} px); kernel on the last batch's boxes: Y {tuple(calls[0][0].shape)} "
+        f"{timing_text(y)} | U,V {tuple(calls[1][0].shape)} {timing_text(uv)}",
+        flush=True,
+    )
+    return {"fps": fps, "launches": launches, "y": y, "uv": uv}
+
+
+def phase_stream() -> dict:
+    """``cli.main.main`` on a short synthetic 1080p video at full width,
+    transfer yuv420 then rgb. Its frames/s is the CLI's wall time (engine
+    build and codec included) and is bound by the codec, not the card."""
+    import tempfile
+
+    import numpy as np
+
+    from video_desensitization_torch.cli.main import main as cli_main
+    from video_desensitization_torch.ops import cuda_mosaic
+    from video_desensitization_torch.video import av
+
+    rng = np.random.default_rng(5)
+    parts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        src = f"{tmp}/in.mp4"
+        with av.VideoEncoder(src, WIDTH, HEIGHT, fps=24, codec="mpeg4") as enc:
+            for _ in range(STREAM_FRAMES):
+                coarse = rng.integers(0, 256, (HEIGHT // 8, WIDTH // 8, 3), dtype=np.uint8)
+                enc.write(coarse.repeat(8, axis=0).repeat(8, axis=1))
+        for transfer in ("yuv420", "rgb"):
+            ini = f"{tmp}/{transfer}.ini"
+            with open(ini, "w") as f:
+                f.write(
+                    "[PATHS]\nmodel_path=\nmodel_weights=\n[SETTINGS]\nbatch_size=8\n"
+                    f"[TPU]\nengine=fused\ntransfer={transfer}\ndtype=bfloat16\n"
+                    "input_size=640\nmax_detections=16\nmosaic_level=8\n"
+                )
+            out = f"{tmp}/out_{transfer}.mp4"
+            cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
+            t0 = time.perf_counter()
+            rc = cli_main([ini, "--video", src, "--out", out, "--allow-random-weights"])
+            seconds = time.perf_counter() - t0
+            launches = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+            check(rc == 0, f"CLI returned {rc}")
+            batches = -(-STREAM_FRAMES // BATCH)
+            per_batch = 2 if transfer == "yuv420" else 1
+            check(launches == per_batch * batches,
+                  f"{transfer}: mosaic kernel called {launches}x in {batches} batches")
+            with av.VideoDecoder(out) as dec:
+                frames = [f.shape for f in dec]
+            check(frames == [(HEIGHT, WIDTH, 3)] * STREAM_FRAMES,
+                  f"{transfer}: {len(frames)} of {STREAM_FRAMES} frames back")
+            parts.append(
+                f"transfer {transfer}: {STREAM_FRAMES} frames back, mosaic calls {launches} in "
+                f"{batches} batches, {STREAM_FRAMES / seconds:.2f} frames/s over the CLI's wall "
+                f"time ({seconds:.2f} s, engine build and codec included: codec-bound)"
+            )
+    print(f"phase stream: codec {av.codec_path()} | " + " | ".join(parts), flush=True)
+    return {"codec": av.codec_path()}
 
 
 def _recording(net, calls):
@@ -348,10 +471,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(repo))
 
+    from video_desensitization_torch.bench_util import main_path_engine
+
     smi = phase_device()
     phase_build()
     phase_kernel()
-    engine = phase_engine()
+    main_engine = main_path_engine()
+    engine = phase_engine(main_engine)
+    yuv = phase_yuv(main_engine, engine["fps"])
+    del main_engine
+    phase_stream()
     phase_reference()
     kernel = {
         "name": "mosaic",
@@ -367,6 +496,12 @@ def main() -> int:
         "library_ms": None,
         "host_ms": engine["host_ms"],
         "cuda_kernels_per_call": engine["kernels_per_call"],
+        "i420_launches": yuv["launches"],
+        "i420_calls_per_batch": yuv["launches"] // (WARMUP_BATCHES + ENGINE_BATCHES),
+        "i420_y_ms": yuv["y"]["ms"],
+        "i420_y_bound_ms": yuv["y"]["bound_ms"],
+        "i420_uv_ms": yuv["uv"]["ms"],
+        "i420_uv_bound_ms": yuv["uv"]["bound_ms"],
     }
     print(json.dumps({"kernels": [kernel]}))
     print(smi)

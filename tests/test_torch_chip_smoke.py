@@ -45,3 +45,51 @@ def test_boxes_that_move_nothing_add_nothing(boxes, valid):
 
 def test_level_one_is_the_identity():
     assert _bound_bytes([[[3, 5, 60, 40]]], [[True]], 1) == 0
+
+
+class _Event:
+    """One key-average row of a device kernel, as torch.profiler gives it."""
+
+    def __init__(self, count, us):
+        self.key, self.count, self.self_device_time_total = "kernel", count, us
+        self.device_type = torch.autograd.DeviceType.CUDA
+
+
+GOOD = [_Event(100, 1650.0)]
+
+
+@pytest.mark.parametrize(
+    "sessions, want",
+    [
+        ([[], GOOD, GOOD], (0.033, 2.0)),  # a session with no device event
+        ([[_Event(100, 660.0)], GOOD, GOOD], (0.033, 2.0)),  # lost time
+        ([[_Event(66, 900.0)], GOOD, GOOD], (0.033, 2.0)),  # lost kernels
+        ([GOOD, [_Event(100, 1600.0)]], (0.032, 2.0)),  # two agree within 20%
+        ([[]] * 6, (None, 0.0)),  # never two that agree
+    ],
+    ids=["empty", "lost-time", "lost-kernels", "agree", "never"],
+)
+def test_profiled_device_ms_takes_two_agreeing_sessions(monkeypatch, sessions, want):
+    """The device time ``chip_smoke.py`` reports comes from two profiler
+    sessions that saw whole kernels per call and agree; sessions that lost
+    events are run again."""
+    import torch.profiler
+
+    from video_desensitization_torch import bench_util
+
+    queue = list(sessions)
+
+    class FakeProfile:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return queue.pop(0)
+
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kwargs: FakeProfile())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+    ms, kernels = bench_util.profiled_device_ms(lambda: None, reps=50)
+    assert (ms if ms is None else round(ms, 6), kernels) == want

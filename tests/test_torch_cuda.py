@@ -5,8 +5,10 @@ full-frame boxes, boxes wholly outside the frame or empty, many nested
 boxes, odd frame sizes, batch 1; and what the kernel's design makes risky:
 many overlapping boxes, boxes that read what another writes, more boxes
 than one pass takes, uneven box counts per frame, frames whose rows are not
-16-byte aligned, repeat launches and host synchronisation. Skipped without
-a CUDA device. This file
+16-byte aligned, repeat launches and host synchronisation. Then the I420
+wrapper (two kernel calls on views of the I420 buffer) against the plain
+I420 mosaic, and the I420 engine on the card. Skipped without a CUDA
+device. This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
 runs without tests/conftest.py:
 
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 from video_desensitization_torch.ops import cuda_mosaic
-from video_desensitization_torch.ops.mosaic import mosaic_boxes_batch
+from video_desensitization_torch.ops.mosaic import mosaic_boxes_batch, mosaic_i420_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -205,3 +207,92 @@ def test_kernel_call_does_not_wait_for_the_device(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def _check_i420(cuda, yuv, boxes, valid, level):
+    """The I420 wrapper against the plain I420 mosaic on the card: in
+    place, two kernel calls (none without boxes), bitwise equal."""
+    frames = torch.from_numpy(yuv).to(cuda)
+    bx = torch.from_numpy(np.asarray(boxes, np.int32).reshape(len(yuv), -1, 4)).to(cuda)
+    ok = torch.from_numpy(np.asarray(valid, bool).reshape(len(yuv), -1)).to(cuda)
+    want = mosaic_i420_batch(frames, bx, ok, level)
+    before = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+    got = cuda_mosaic.mosaic_i420_batch_cuda_(frames, bx, ok, level)
+    torch.cuda.synchronize()
+    assert got is frames
+    assert cuda_mosaic.mosaic_boxes_batch_cuda_.launches == before + (2 if bx.shape[1] else 0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("level", [1, 3, 8])
+@pytest.mark.parametrize("hw", [(1080, 1920), (98, 162)], ids=["1080p", "98x162"])
+def test_i420_matches_plain(cuda, hw, level):
+    """Boxes with odd and negative edges, spilling past every edge; frame 1
+    has no valid box. At 98 rows a chroma plane ends mid-row."""
+    rng = np.random.default_rng(level)
+    h, w = hw
+    yuv = rng.integers(0, 256, (3, h * 3 // 2, w), dtype=np.uint8)
+    boxes, valid = _boxes(rng, 3, 30, h, w)
+    boxes |= 1  # every edge odd
+    valid[1] = False
+    _check_i420(cuda, yuv, boxes, valid, level)
+
+
+def test_i420_special_boxes(cuda):
+    rng = np.random.default_rng(420)
+    h, w = 120, 200
+    yuv = rng.integers(0, 256, (2, h * 3 // 2, w), dtype=np.uint8)
+    bl = [
+        [-31, -17, w + 33, h + 9],  # past every edge: the whole frame
+        [-7, -5, -1, -1],  # wholly outside, above and left
+        [w - 1, h - 1, w + 50, h + 50],  # one pixel at the corner
+        [13, 7, 14, 8],  # one odd pixel
+        [-3, 101, 61, h + 1],  # spills left and into the chroma rows' place
+        [199, 0, 201, 119],  # one column at the right edge
+    ]
+    _check_i420(cuda, yuv, [bl, bl[::-1]], np.ones((2, len(bl)), bool), 8)
+    _check_i420(cuda, yuv, np.zeros((2, 0, 4)), np.zeros((2, 0)), 8)  # K = 0
+    _check_i420(cuda, yuv, [bl, bl], np.zeros((2, len(bl)), bool), 8)  # none valid
+
+
+def test_i420_call_does_not_wait_for_the_device(cuda):
+    yuv = torch.zeros((2, 96, 96), dtype=torch.uint8, device=cuda)
+    boxes = torch.tensor([[[5, 5, 60, 40]], [[-9, 3, 50, 99]]], dtype=torch.int32, device=cuda)
+    valid = torch.ones((2, 1), dtype=torch.bool, device=cuda)
+    cuda_mosaic.mosaic_i420_batch_cuda_(yuv, boxes, valid, 8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cuda_mosaic.mosaic_i420_batch_cuda_(yuv, boxes, valid, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_engine_process_batch_yuv_on_the_card(cuda):
+    """The I420 engine on the card: its blurred frames are the plain I420
+    mosaic of its own boxes, and two kernel calls made them."""
+    from video_desensitization_torch.detect.face import Retinaface
+    from video_desensitization_torch.detect.plate import PlateDetector
+    from video_desensitization_torch.pipeline.engine import DesensitizationEngine
+
+    face = Retinaface(backbone="mobilenet", input_shape=[128, 128, 3], max_detections=16,
+                      dtype=torch.float32, device=cuda)
+    plate = PlateDetector(variant="n", input_shape=(128, 128), max_detections=8,
+                          dtype=torch.float32, device=cuda)
+    engine = DesensitizationEngine(face, plate, mosaic_level=8)
+    yuv = np.random.default_rng(7).integers(0, 256, (2, 144, 160), dtype=np.uint8)
+    before = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+    res = engine.process_batch_yuv(yuv)
+    assert cuda_mosaic.mosaic_boxes_batch_cuda_.launches == before + 2
+    assert res.frames.shape == yuv.shape and res.num_faces + res.num_plates > 0
+    kept = [f + p for f, p in zip(res.face_boxes, res.plate_boxes)]
+    k = max(len(b) for b in kept)
+    boxes = np.zeros((2, k, 4), np.float32)
+    valid = np.zeros((2, k), bool)
+    for i, bl in enumerate(kept):
+        boxes[i, : len(bl)] = bl
+        valid[i, : len(bl)] = True
+    want = mosaic_i420_batch(torch.from_numpy(yuv), torch.from_numpy(boxes.astype(np.int32)),
+                             torch.from_numpy(valid), 8)
+    np.testing.assert_array_equal(res.frames, want.numpy())

@@ -3,19 +3,20 @@
 The CUDA source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface at first use, into
 ``video_desensitization_torch/_build/`` under a name that carries the
-source's hash, and loaded with ``ctypes``. A CPU tensor goes to the plain
-PyTorch version (``ops.mosaic.mosaic_boxes_batch_``); a CUDA tensor goes to
-the kernel or the call raises.
+source's hash (``utils/native.py``), and loaded with ``ctypes``. A CPU
+tensor goes to the plain PyTorch version (``ops.mosaic``); a CUDA tensor
+goes to the kernel or the call raises.
+
+Two wrappers: ``mosaic_boxes_batch_cuda_`` on (B, H, W, C) frames, one
+kernel call each, and ``mosaic_i420_batch_cuda_`` on planar I420 frames,
+two kernel calls each (``i420_kernel_calls``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
 from functools import lru_cache
 from pathlib import Path
 
@@ -24,13 +25,15 @@ import torch
 
 from video_desensitization_torch.ops.mosaic import (
     DEFAULT_MOSAIC_LEVEL,
+    chroma_boxes,
     composed_mosaic_table,
+    i420_frame_hw,
     mosaic_boxes_batch_,
+    mosaic_i420_batch,
 )
+from video_desensitization_torch.utils import native
 
-PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE_DIR / "csrc" / "mosaic.cu"
-BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCE = native.PACKAGE_DIR / "csrc" / "mosaic.cu"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,23 +52,10 @@ def _nvcc() -> str:
 
 
 def build_library(source: Path = SOURCE) -> Path:
-    """Compile ``source`` unless a library built from the same bytes exists.
-    Returns the library's path; compiler output goes to ``<lib>.log``."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{source.stem}_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    """Compile ``source`` with nvcc unless a library built from the same
+    bytes exists. Returns the library's path; compiler output goes to
+    ``<lib>.log``."""
+    return native.build_library(source, [_nvcc(), *NVCC_FLAGS])
 
 
 @lru_cache(maxsize=None)
@@ -149,3 +139,70 @@ def mosaic_boxes_batch_cuda_(
 
 
 mosaic_boxes_batch_cuda_.launches = 0
+
+
+def i420_kernel_calls(yuv: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor, level: int):
+    """The two kernel calls that mosaic a contiguous (B, H*3/2, W) I420
+    batch in place, as ``(frames, boxes, valid, level)`` arguments of
+    ``mosaic_boxes_batch_cuda_``, each frames a view of ``yuv`` (no copy):
+
+    * Y: each frame's whole buffer as (B, H*3/2, W, 1), with the boxes
+      clipped to the H x W Y plane first. A box's sources lie inside it, so
+      no box reads or writes a chroma row and the Y rows come out as the
+      plane's own mosaic.
+    * U and V: each frame's buffer is six (H/2, W/2) blocks, four of Y, then
+      U, then V; as (B*6, H/2, W/2, 1), with ``chroma_boxes`` valid on the U
+      and V blocks only, at ``max(1, level // 2)``. The mosaic gathers each
+      channel alike, so U and V as two planes equal the interleaved (U, V)
+      plane of ``ops.mosaic.mosaic_i420_batch``.
+    """
+    b, h15, w = yuv.shape
+    h, k = i420_frame_hw(yuv.shape)[0], boxes.shape[1]
+    y_boxes = torch.stack(
+        [boxes[..., 0].clamp(0, w), boxes[..., 1].clamp(0, h),
+         boxes[..., 2].clamp(0, w), boxes[..., 3].clamp(0, h)],
+        dim=-1,
+    )
+    block_boxes = chroma_boxes(boxes)[:, None].expand(b, 6, k, 4).reshape(b * 6, k, 4)
+    block_valid = torch.cat(
+        [torch.zeros((b, 4, k), dtype=torch.bool, device=valid.device),
+         valid[:, None].expand(b, 2, k)],
+        dim=1,
+    ).reshape(b * 6, k)
+    return [
+        (yuv.view(b, h15, w, 1), y_boxes, valid, level),
+        (yuv.view(b * 6, h // 2, w // 2, 1), block_boxes, block_valid, max(1, level // 2)),
+    ]
+
+
+def mosaic_i420_batch_cuda_(
+    yuv: torch.Tensor,
+    boxes: torch.Tensor,
+    valid: torch.Tensor,
+    level: int = DEFAULT_MOSAIC_LEVEL,
+) -> torch.Tensor:
+    """Mosaic every valid box of a contiguous (B, H*3/2, W) uint8 I420 batch
+    IN PLACE (the input is mutated and returned), H and W even. boxes:
+    (B, K, 4) int full-resolution pixel xyxy, unclipped ok; valid: (B, K).
+
+    CPU tensors run the plain ``ops.mosaic.mosaic_i420_batch``; CUDA tensors
+    make the two kernel calls of ``i420_kernel_calls`` on the current
+    stream, each counted once in ``mosaic_boxes_batch_cuda_.launches``. The
+    boxes are never read on the host.
+    """
+    i420_frame_hw(yuv.shape)
+    if level < 1:
+        raise ValueError(f"mosaic level must be >= 1, got {level}")
+    if yuv.dtype != torch.uint8 or not yuv.is_contiguous():
+        raise ValueError("frames must be a contiguous uint8 tensor")
+    if boxes.shape[:2] != valid.shape or boxes.shape[0] != yuv.shape[0] or boxes.shape[-1] != 4:
+        raise ValueError(f"boxes {tuple(boxes.shape)} / valid {tuple(valid.shape)}")
+    if yuv.device.type == "cpu":
+        return yuv.copy_(mosaic_i420_batch(yuv, boxes, valid, level))
+    if yuv.device.type != "cuda":
+        raise ValueError(f"unsupported device {yuv.device}")
+    boxes = boxes.to(device=yuv.device, dtype=torch.int32)
+    valid = valid.to(device=yuv.device, dtype=torch.bool)
+    for call in i420_kernel_calls(yuv, boxes, valid, level):
+        mosaic_boxes_batch_cuda_(*call)
+    return yuv

@@ -10,7 +10,9 @@ exact source offset for every extent:
 
 where ``cur`` is the frame after the earlier boxes. ``mosaic_boxes_batch_``
 below is the plain PyTorch version of that rule; the CUDA kernel in
-``ops/cuda_mosaic.py`` is held against it.
+``ops/cuda_mosaic.py`` is held against it. ``mosaic_i420_batch`` applies it
+to the planes of I420 frames, and the cv2 host functions at the end are the
+oracles both are tested against.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from video_desensitization_torch.ops.yuv import join_i420, split_i420
 
 DEFAULT_MOSAIC_LEVEL = 8
 
@@ -99,6 +103,103 @@ def mosaic_boxes_batch(
 ) -> torch.Tensor:
     """Out-of-place form of ``mosaic_boxes_batch_``."""
     return mosaic_boxes_batch_(frames.clone(), boxes, valid, level)
+
+
+def chroma_boxes(boxes: torch.Tensor) -> torch.Tensor:
+    """Half-resolution chroma-plane boxes covering a full-resolution pixel
+    box: the start floors and the end ceils, so every chroma sample whose
+    2x2 luma block meets the box is pixelated. ``//`` on integer tensors
+    floors, also for negative coordinates."""
+    return torch.stack(
+        [boxes[..., 0] // 2, boxes[..., 1] // 2, (boxes[..., 2] + 1) // 2, (boxes[..., 3] + 1) // 2],
+        dim=-1,
+    )
+
+
+def mosaic_i420_batch(
+    yuv: torch.Tensor,
+    boxes: torch.Tensor,
+    valid: torch.Tensor,
+    level: int = DEFAULT_MOSAIC_LEVEL,
+    plane_fn=None,
+) -> torch.Tensor:
+    """Mosaic planar I420 frames directly, out of place.
+
+    yuv: (B, H*3/2, W) uint8 (each frame H*W bytes of Y, then H/2 x W/2 of
+    U, then of V: ``ops.yuv.split_i420``), H and W even; boxes: (B, K, 4)
+    int full-resolution pixel xyxy; valid: (B, K) bool.
+
+    The Y plane takes the boxes at ``level``; U and V, interleaved as
+    (B, H/2, W/2, 2), take ``chroma_boxes`` at ``max(1, level // 2)``, so a
+    chroma block covers about as many full-resolution pixels as a luma
+    block. plane_fn: the (B, H, W, C) plane anonymizer, called as
+    ``plane_fn(planes, boxes, valid, level)``; the plain
+    ``mosaic_boxes_batch`` by default.
+    """
+    if plane_fn is None:
+        plane_fn = mosaic_boxes_batch
+    h, w = i420_frame_hw(yuv.shape)
+    y, u, v = split_i420(yuv, h, w)
+    y_out = plane_fn(y[..., None], boxes, valid, level)[..., 0]
+    c_out = plane_fn(torch.stack([u, v], dim=-1), chroma_boxes(boxes), valid, max(1, level // 2))
+    return join_i420(y_out, c_out[..., 0], c_out[..., 1])
+
+
+def i420_frame_hw(shape) -> tuple:
+    """(H, W) of a (B, H*3/2, W) I420 batch; raises ``ValueError`` unless
+    the rows are H*3/2 with H and W even."""
+    if len(shape) != 3:
+        raise ValueError(f"expected (B, H*3/2, W) I420 frames, got {tuple(shape)}")
+    h15, w = shape[1:]
+    h = (h15 * 2) // 3
+    if h15 * 2 != h * 3 or h % 2 or w % 2:
+        raise ValueError(f"I420 frames need H*3/2 rows with H and W even, got {tuple(shape)}")
+    return h, w
+
+
+def mosaic_i420_host_inplace(yuv: np.ndarray, boxes, level: int = DEFAULT_MOSAIC_LEVEL) -> np.ndarray:
+    """Host oracle for ``mosaic_i420_batch``: the cv2 mosaic per plane on
+    one (H*3/2, W) I420 image, full-resolution boxes on Y, halved boxes at
+    ``max(1, level // 2)`` on U and V. Mutates ``yuv``."""
+    # The planes are reshaped views; on a non-contiguous array numpy would
+    # copy and the writes would be lost.
+    if not yuv.flags["C_CONTIGUOUS"]:
+        raise ValueError("mosaic_i420_host_inplace needs a C-contiguous array")
+    h15, w = yuv.shape
+    h = (h15 * 2) // 3
+    hw, q = h * w, (h // 2) * (w // 2)
+    flat = yuv.reshape(-1)
+    mosaic_host_inplace(yuv[:h], boxes, level)
+    u = flat[hw : hw + q].reshape(h // 2, w // 2)
+    v = flat[hw + q :].reshape(h // 2, w // 2)
+    cb = [[x1 // 2, y1 // 2, (x2 + 1) // 2, (y2 + 1) // 2] for x1, y1, x2, y2 in boxes]
+    clevel = max(1, level // 2)
+    mosaic_host_inplace(u, cb, clevel)
+    mosaic_host_inplace(v, cb, clevel)
+    return yuv
+
+
+def mosaic_host_inplace(img: np.ndarray, boxes, level: int = DEFAULT_MOSAIC_LEVEL) -> np.ndarray:
+    """The reference's cv2 mosaic, box after box, on ``img`` in place."""
+    import cv2
+
+    h, w = img.shape[:2]
+    for x1, y1, x2, y2 in boxes:
+        x1, y1 = max(0, int(x1)), max(0, int(y1))
+        x2, y2 = min(w, int(x2)), min(h, int(y2))
+        if x2 <= x1 or y2 <= y1:
+            continue
+        area = img[y1:y2, x1:x2]
+        sh = max(1, (y2 - y1) // level)
+        sw = max(1, (x2 - x1) // level)
+        small = cv2.resize(area, (sw, sh), interpolation=cv2.INTER_NEAREST)
+        img[y1:y2, x1:x2] = cv2.resize(small, (x2 - x1, y2 - y1), interpolation=cv2.INTER_NEAREST)
+    return img
+
+
+def mosaic_host_reference(img: np.ndarray, boxes, level: int = DEFAULT_MOSAIC_LEVEL) -> np.ndarray:
+    """``mosaic_host_inplace`` on a copy of ``img``."""
+    return mosaic_host_inplace(img.copy(), boxes, level)
 
 
 def gaussian_blur_boxes(

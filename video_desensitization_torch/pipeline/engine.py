@@ -1,11 +1,14 @@
-"""The fused desensitization engine: uint8 RGB frames in, blurred frames and
-boxes out, everything between on one device.
+"""The fused desensitization engine: uint8 RGB or planar I420 frames in,
+blurred frames of the same form and boxes out, everything between on one
+device.
 
-Per batch: one cv2-exact letterbox into a shared uint8 canvas (when the
-installed cv2's rounding is recognised for the geometry; each detector
-letterboxes in float otherwise), RetinaFace and YOLOv8 on that canvas,
-face boxes then plate boxes, and the mosaic kernel pixelating them in place
-over the full-resolution frames.
+Per batch: I420 frames are converted to RGB for the detectors (cv2-exact,
+``ops.yuv.i420_to_rgb_u8``); one cv2-exact letterbox into a shared uint8
+canvas (when the installed cv2's rounding is recognised for the geometry;
+each detector letterboxes in float otherwise), RetinaFace and YOLOv8 on
+that canvas, face boxes then plate boxes, and the mosaic kernel pixelating
+them in place over the full-resolution frames: the RGB frames, or the I420
+planes (Y at ``mosaic_level``, U and V at half resolution).
 
 On CUDA, ``dispatch_batch`` enqueues the host-to-device copy, the program
 and the device-to-host copies on the engine's own stream, through pinned
@@ -21,18 +24,26 @@ import numpy as np
 import torch
 
 from video_desensitization_torch.detect.face import Retinaface
-from video_desensitization_torch.ops.cuda_mosaic import mosaic_boxes_batch_cuda_
+from video_desensitization_torch.ops.cuda_mosaic import (
+    mosaic_boxes_batch_cuda_,
+    mosaic_i420_batch_cuda_,
+)
 from video_desensitization_torch.ops.image import (
     letterbox_canvas_formula,
     letterbox_canvas_u8,
     letterbox_params,
 )
-from video_desensitization_torch.ops.mosaic import gaussian_blur_boxes
+from video_desensitization_torch.ops.mosaic import (
+    gaussian_blur_boxes,
+    i420_frame_hw,
+    mosaic_i420_batch,
+)
+from video_desensitization_torch.ops.yuv import i420_to_rgb_u8
 
 
 @dataclasses.dataclass
 class EngineResult:
-    frames: np.ndarray  # blurred uint8 (B, H, W, 3) RGB
+    frames: np.ndarray  # blurred uint8: (B, H, W, 3) RGB, or (B, H*3/2, W) I420
     face_boxes: list  # per-image list of [x1, y1, x2, y2] float pixel boxes
     plate_boxes: list
     num_faces: int
@@ -72,11 +83,18 @@ class DesensitizationEngine:
         self.last_letterbox = None  # "shared-<formula>" or "per-detector-float"
 
     @torch.inference_mode()
-    def program(self, frames_u8: torch.Tensor, image_shapes: torch.Tensor):
-        """(B, H, W, 3) uint8 device frames -> (blurred, face_px, face_keep,
-        plate_px, plate_keep). The frames are blurred IN PLACE and returned
-        as ``blurred``."""
+    def program(self, frames: torch.Tensor, image_shapes: torch.Tensor):
+        """(B, H, W, 3) RGB or (B, H*3/2, W) I420 uint8 device frames ->
+        (blurred, face_px, face_keep, plate_px, plate_keep). The frames are
+        blurred IN PLACE and returned as ``blurred``; the detectors see I420
+        frames through a temporary RGB copy."""
         face, plate = self.face, self.plate
+        yuv = frames.ndim == 3
+        if yuv:
+            h, w = i420_frame_hw(frames.shape)
+            frames_u8 = i420_to_rgb_u8(frames, h, w)
+        else:
+            frames_u8 = frames
         b, h, w, _ = frames_u8.shape
         canvas = None
         if self.share_letterbox and (plate is None or plate.input_hw == face.input_hw):
@@ -109,24 +127,36 @@ class DesensitizationEngine:
             plate_px = torch.zeros((b, 1, 6), dtype=torch.float32, device=frames_u8.device)
             plate_keep = torch.zeros((b, 1), dtype=torch.bool, device=frames_u8.device)
             boxes, valid = fboxes, face_keep
-        if self.anonymizer == "gaussian":
-            frames_u8.copy_(gaussian_blur_boxes(frames_u8, boxes, valid))
+        level = self.mosaic_level
+        if yuv and self.anonymizer == "gaussian":
+            frames.copy_(mosaic_i420_batch(frames, boxes, valid, level, plane_fn=_gaussian_plane(level)))
+        elif yuv:
+            mosaic_i420_batch_cuda_(frames, boxes, valid, level)
+        elif self.anonymizer == "gaussian":
+            frames.copy_(gaussian_blur_boxes(frames, boxes, valid))
         else:
-            mosaic_boxes_batch_cuda_(frames_u8, boxes, valid, self.mosaic_level)
-        return frames_u8, face_px, face_keep, plate_px, plate_keep
+            mosaic_boxes_batch_cuda_(frames, boxes, valid, level)
+        return frames, face_px, face_keep, plate_px, plate_keep
 
     def dispatch_batch(
         self, frames: np.ndarray, image_shapes: Optional[np.ndarray] = None
     ):
         """Enqueue one batch and return a handle for :meth:`finalize_batch`.
 
-        frames: uint8 (B, H, W, 3) RGB at native resolution. On CUDA the
-        copies and the program run on the engine's stream; only the NMS
-        convergence test waits on the device.
+        frames: uint8 (B, H, W, 3) RGB, or (B, H*3/2, W) planar I420 with H
+        and W even, at native resolution, routed by rank. On CUDA the copies
+        and the program run on the engine's stream; only the NMS convergence
+        test waits on the device.
         """
-        if frames.ndim != 4 or frames.shape[-1] != 3:
-            raise ValueError(f"expected (B, H, W, 3) RGB frames, got {frames.shape}")
-        b, h, w, _ = frames.shape
+        if frames.ndim == 3:
+            b = frames.shape[0]
+            h, w = i420_frame_hw(frames.shape)
+        elif frames.ndim == 4 and frames.shape[-1] == 3:
+            b, h, w, _ = frames.shape
+        else:
+            raise ValueError(
+                f"expected (B, H, W, 3) RGB or (B, H*3/2, W) I420 frames, got {frames.shape}"
+            )
         if image_shapes is None:
             image_shapes = np.tile(np.array([[h, w]], np.float32), (b, 1))
         elif self.share_letterbox and not np.all(np.asarray(image_shapes) == [h, w]):
@@ -171,7 +201,34 @@ class DesensitizationEngine:
         self, frames: np.ndarray, image_shapes: Optional[np.ndarray] = None
     ) -> EngineResult:
         """frames: uint8 (B, H, W, 3) RGB at native resolution."""
+        if frames.ndim != 4:
+            raise ValueError(f"expected (B, H, W, 3) RGB frames, got {frames.shape}")
         return self.finalize_batch(self.dispatch_batch(frames, image_shapes))
+
+    def process_batch_yuv(
+        self, yuv_frames: np.ndarray, image_shapes: Optional[np.ndarray] = None
+    ) -> EngineResult:
+        """yuv_frames: uint8 (B, H*3/2, W) planar I420 at native resolution,
+        as a video decoder gives them, H and W even. The detectors run on
+        the cv2-exact RGB conversion; the mosaic goes on the planes (Y at
+        full resolution, U and V at half, ``ops.mosaic.mosaic_i420_batch``).
+        ``EngineResult.frames`` is the blurred I420 batch, ready for an
+        encoder."""
+        if yuv_frames.ndim != 3:
+            raise ValueError(f"expected (B, H*3/2, W) I420 frames, got {yuv_frames.shape}")
+        return self.finalize_batch(self.dispatch_batch(yuv_frames, image_shapes))
+
+
+def _gaussian_plane(level: int):
+    """The gaussian anonymizer for one I420 plane: the chroma planes, at
+    half the mosaic level, get half the sigma and radius, so the blur covers
+    the same full-resolution footprint as on Y."""
+    def plane_fn(planes, boxes, valid, plane_level):
+        s = plane_level / max(1, level)
+        return gaussian_blur_boxes(
+            planes, boxes, valid, sigma=6.0 * s, kernel_radius=max(1, round(12 * s))
+        )
+    return plane_fn
 
 
 def _gather_result(frames, face_px, face_keep, plate_px, plate_keep) -> EngineResult:
