@@ -23,10 +23,28 @@ Phases, each printing one line and asserting:
      mosaic of the engine's own boxes, the same detections as process_batch
      on the cv2-exact RGB of the same frames, and the kernel's device time
      on the Y call and the chroma call beside each one's bound;
-  6. stream: the CLI (cli.main.main) at full width on a short synthetic
-     1080p video, with transfer = yuv420 and then rgb, every frame back,
-     the kernel's calls counted, and the codec path (native libav or cv2);
-  7. reference: the card against the CPU on the same weights in float32:
+  6. tiered: the CLI's default engine, the tiered pipeline (host letterbox,
+     the detectors on the card, boxes-only readback, host cv2 mosaic), on
+     the same detectors and on new 8x1080x1920 RGB batches: process_batch
+     and process_stream give the same results, every blurred frame is the
+     cv2 mosaic of the pipeline's own boxes, the kept boxes equal the fused
+     engine's on the same batches, the mosaic kernel is launched 0 times;
+     frames/s of both warm, in alternating windows, beside the fused
+     engine's, stage times alone and inside a stream, bytes each way, the
+     engine=auto link probe, and the same batches with transfer = yuv420;
+  7. record: the record job's stages on the committed 1080p fixture
+     (tests/fixtures/torch_record_1080p.record, LZ4 chunks): unpack, each
+     camera stream checked byte for byte, then every stream through the
+     tiered and the fused engine (process_single_video), every frame back,
+     the kernel's calls counted; the CLI's whole record job (main([ini]),
+     with the HEVC repack) only where the codec layer can encode HEVC,
+     which is asked before anything runs, and the line says which;
+  8. stream: the CLI (cli.main.main) at full width on a short synthetic
+     1080p video: the fused engine with transfer = yuv420 and then rgb,
+     then the CLI's default engine (no engine key: the tiered pipeline
+     through process_stream); every frame back, the kernel's calls counted
+     (0 on the default), and the codec path (native libav or cv2);
+  9. reference: the card against the CPU on the same weights in float32:
      both networks, then the rest of the engine's program (letterbox
      canvas, decode, NMS, inverse letterbox, box order);
 then a "kernels" JSON line, the nvidia-smi line, and the result line.
@@ -36,6 +54,8 @@ Exits non-zero without CUDA, outside the repository, or on any failure.
 from __future__ import annotations
 
 import json
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -47,7 +67,11 @@ BATCH, HEIGHT, WIDTH = 8, 1080, 1920
 ENGINE_BATCHES = 6
 STREAM_FRAMES = 24
 WARMUP_BATCHES = 2
+TIERED_WINDOWS = 3
+STREAM_REPEATS = 3
 TIMED_CALLS = 50
+REPO = Path(__file__).resolve().parent
+RECORD_FIXTURE = REPO / "tests" / "fixtures" / "torch_record_1080p.record"
 
 
 def check(ok, message="check failed") -> None:
@@ -326,18 +350,30 @@ def phase_yuv(engine, rgb_fps: float) -> dict:
 
 
 def phase_stream() -> dict:
-    """``cli.main.main`` on a short synthetic 1080p video at full width,
-    transfer yuv420 then rgb. Its frames/s is the CLI's wall time (engine
-    build and codec included) and is bound by the codec, not the card."""
+    """``cli.main.main`` on a short synthetic 1080p video at full width:
+    the fused engine with transfer = yuv420, then rgb, then a config with no
+    ``engine`` or ``transfer`` key, so the CLI takes its default (the tiered
+    pipeline on rgb, through ``process_stream``). Its frames/s is the CLI's
+    wall time (engine build and codec included) and is bound by the codec,
+    not the card."""
     import tempfile
 
     import numpy as np
 
     from video_desensitization_torch.cli.main import main as cli_main
     from video_desensitization_torch.ops import cuda_mosaic
+    from video_desensitization_torch.pipeline.throughput import TieredPipeline
     from video_desensitization_torch.video import av
 
     rng = np.random.default_rng(5)
+    batches = -(-STREAM_FRAMES // BATCH)
+    streams = []
+    stream_of = TieredPipeline.process_stream
+
+    def counted_stream(self, *args, **kwargs):
+        streams.append(self)
+        return stream_of(self, *args, **kwargs)
+
     parts = []
     with tempfile.TemporaryDirectory() as tmp:
         src = f"{tmp}/in.mp4"
@@ -345,36 +381,307 @@ def phase_stream() -> dict:
             for _ in range(STREAM_FRAMES):
                 coarse = rng.integers(0, 256, (HEIGHT // 8, WIDTH // 8, 3), dtype=np.uint8)
                 enc.write(coarse.repeat(8, axis=0).repeat(8, axis=1))
-        for transfer in ("yuv420", "rgb"):
-            ini = f"{tmp}/{transfer}.ini"
+        # (name, [TPU] keys, mosaic kernel calls a batch)
+        passes = [
+            ("fused yuv420", "engine=fused\ntransfer=yuv420\n", 2),
+            ("fused rgb", "engine=fused\ntransfer=rgb\n", 1),
+            ("default (tiered rgb)", "", 0),
+        ]
+        for i, (name, keys, per_batch) in enumerate(passes):
+            ini = f"{tmp}/{i}.ini"
             with open(ini, "w") as f:
                 f.write(
                     "[PATHS]\nmodel_path=\nmodel_weights=\n[SETTINGS]\nbatch_size=8\n"
-                    f"[TPU]\nengine=fused\ntransfer={transfer}\ndtype=bfloat16\n"
-                    "input_size=640\nmax_detections=16\nmosaic_level=8\n"
+                    f"[TPU]\n{keys}dtype=bfloat16\ninput_size=640\nmax_detections=16\n"
+                    "mosaic_level=8\n"
                 )
-            out = f"{tmp}/out_{transfer}.mp4"
+            out = f"{tmp}/out_{i}.mp4"
             cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
-            t0 = time.perf_counter()
-            rc = cli_main([ini, "--video", src, "--out", out, "--allow-random-weights"])
-            seconds = time.perf_counter() - t0
+            streams.clear()
+            TieredPipeline.process_stream = counted_stream
+            try:
+                t0 = time.perf_counter()
+                rc = cli_main([ini, "--video", src, "--out", out, "--allow-random-weights"])
+                seconds = time.perf_counter() - t0
+            finally:
+                TieredPipeline.process_stream = stream_of
             launches = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
-            check(rc == 0, f"CLI returned {rc}")
-            batches = -(-STREAM_FRAMES // BATCH)
-            per_batch = 2 if transfer == "yuv420" else 1
+            check(rc == 0, f"{name}: CLI returned {rc}")
             check(launches == per_batch * batches,
-                  f"{transfer}: mosaic kernel called {launches}x in {batches} batches")
+                  f"{name}: mosaic kernel called {launches}x in {batches} batches")
+            tiered = len(streams) == 1 and streams[0].transfer == "rgb"
+            check(tiered == (per_batch == 0),
+                  f"{name}: {len(streams)} tiered streams ran, not {int(per_batch == 0)}")
             with av.VideoDecoder(out) as dec:
                 frames = [f.shape for f in dec]
             check(frames == [(HEIGHT, WIDTH, 3)] * STREAM_FRAMES,
-                  f"{transfer}: {len(frames)} of {STREAM_FRAMES} frames back")
+                  f"{name}: {len(frames)} of {STREAM_FRAMES} frames back")
             parts.append(
-                f"transfer {transfer}: {STREAM_FRAMES} frames back, mosaic calls {launches} in "
-                f"{batches} batches, {STREAM_FRAMES / seconds:.2f} frames/s over the CLI's wall "
-                f"time ({seconds:.2f} s, engine build and codec included: codec-bound)"
+                f"{name}: {STREAM_FRAMES} frames back, mosaic calls {launches} in {batches} "
+                f"batches, tiered process_stream runs {len(streams)}, "
+                f"{STREAM_FRAMES / seconds:.2f} frames/s over the CLI's wall time "
+                f"({seconds:.2f} s, engine build and codec included: codec-bound)"
             )
     print(f"phase stream: codec {av.codec_path()} | " + " | ".join(parts), flush=True)
     return {"codec": av.codec_path()}
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``reps`` calls of ``fn`` (host work only)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fmt(values) -> str:
+    return "[" + ", ".join(f"{v:.2f}" for v in values) + "]"
+
+
+def stream_stage_ms(pipe, batches) -> dict:
+    """Median host ms per batch of each stage of ``pipe.process_stream``
+    while it runs over ``batches``: the letterbox on the caller's thread,
+    ``dispatch`` (copies and program enqueued, NMS syncs included) on the
+    dispatch thread, ``finalize`` (the wait for the boxes, then the host
+    mosaic) on the finalize thread. Each method is wrapped on the instance
+    for the one stream and unwrapped after it."""
+    stages = {"letterbox_batch": "letterbox", "dispatch": "dispatch", "finalize": "finalize"}
+    times = {key: [] for key in stages.values()}
+
+    def timed(method, key):
+        fn = getattr(pipe, method)
+
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    for method, key in stages.items():
+        setattr(pipe, method, timed(method, key))
+    try:
+        list(pipe.process_stream(iter(batches)))
+    finally:
+        for method in stages:
+            delattr(pipe, method)
+    return {key: statistics.median(v) for key, v in times.items()}
+
+
+def phase_tiered(engine) -> dict:
+    """The tiered pipeline on the fused engine's own detectors (the CLI's
+    configuration at full width), on batches of its own."""
+    import numpy as np
+    import torch
+
+    from video_desensitization_torch.bench_util import cuda_time_ms, engine_fps
+    from video_desensitization_torch.cli.main import pick_engine, probe_link_gib_s
+    from video_desensitization_torch.ops import cuda_mosaic
+    from video_desensitization_torch.ops.image import letterbox_geometry
+    from video_desensitization_torch.ops.mosaic import mosaic_host_reference
+    from video_desensitization_torch.pipeline.throughput import TieredPipeline
+
+    rng = np.random.default_rng(6)
+    batches = [
+        rng.integers(0, 256, (BATCH, HEIGHT, WIDTH, 3), dtype=np.uint8)
+        for _ in range(ENGINE_BATCHES)
+    ]
+    fused_fps, fused = engine_fps(engine, batches, warmup=WARMUP_BATCHES)
+    tiered = TieredPipeline(engine.face, engine.plate, mosaic_level=engine.mosaic_level)
+    yuv = TieredPipeline(engine.face, engine.plate, mosaic_level=engine.mosaic_level,
+                         transfer="yuv420")
+    cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
+    # process_batch and process_stream, each warmed first, then timed in
+    # alternating windows on the same batches: process_batch over the
+    # batches once, process_stream over them STREAM_REPEATS times in one
+    # stream (so the fill and drain of its STREAM_DEPTH batches in flight
+    # weigh less).
+    list(tiered.process_stream(iter(batches[:WARMUP_BATCHES])))
+    batch_fps, stream_fps = [], []
+    for _ in range(TIERED_WINDOWS):
+        fps, results = engine_fps(tiered, batches, warmup=WARMUP_BATCHES if not batch_fps else 0)
+        batch_fps.append(fps)
+        t0 = time.perf_counter()
+        streamed = list(tiered.process_stream(iter(batches * STREAM_REPEATS)))
+        stream_fps.append(len(streamed) * BATCH / (time.perf_counter() - t0))
+    stage_in_stream = stream_stage_ms(tiered, batches * STREAM_REPEATS)
+    yuv_fps, yuv_results = engine_fps(yuv, batches, warmup=WARMUP_BATCHES)
+    launches = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+    fps = statistics.median(batch_fps)
+    check(launches == 0, f"the mosaic kernel was launched {launches}x on the tiered path")
+
+    box_err, n_boxes = 0.0, 0
+    check(len(streamed) == STREAM_REPEATS * ENGINE_BATCHES, "process_stream lost batches")
+    for j, st in enumerate(streamed):
+        res = results[j % ENGINE_BATCHES]
+        check(np.array_equal(st.frames, res.frames) and st.face_boxes == res.face_boxes
+              and st.plate_boxes == res.plate_boxes, "process_stream != process_batch")
+    for frames, res, fu in zip(batches, results, fused):
+        for i in range(BATCH):
+            boxes = np.asarray(res.face_boxes[i] + res.plate_boxes[i], np.float32).reshape(-1, 4)
+            want = mosaic_host_reference(frames[i], boxes.astype(np.int64).tolist(),
+                                         engine.mosaic_level)
+            check(np.array_equal(res.frames[i], want), "tiered != cv2 mosaic of its own boxes")
+        for a, b in zip(res.face_boxes + res.plate_boxes, fu.face_boxes + fu.plate_boxes):
+            check(len(a) == len(b), "the tiered and fused engines kept different boxes")
+            n_boxes += len(a)
+            if a:
+                box_err = max(box_err, float(np.abs(np.asarray(a) - np.asarray(b)).max()))
+    check(box_err <= 1e-3, f"tiered boxes differ from the fused engine's by {box_err} px")
+    yuv_boxes = sum(r.num_faces + r.num_plates for r in yuv_results)
+
+    # Each stage alone on the last batch: the host letterbox, the device
+    # program on device-resident content (CUDA events), the host mosaic
+    # (finalize on a batch whose boxes are already back).
+    frames = batches[-1]
+    shapes = np.tile(np.array([[HEIGHT, WIDTH]], np.float32), (BATCH, 1))
+    content = tiered.letterbox_batch(frames)
+    aux = np.concatenate([shapes, letterbox_geometry(shapes, tiered.input_hw)], axis=1)
+    dev_content, dev_aux = torch.from_numpy(content).cuda(), torch.from_numpy(aux).cuda()
+    handle = tiered.dispatch(content, shapes)
+    tiered.finalize(frames, handle)  # waits for the boxes; warms the pool
+    stages = {
+        "letterbox": host_ms(lambda: tiered.letterbox_batch(frames)),
+        "program": cuda_time_ms(lambda: tiered.program(dev_content, dev_aux)),
+        "mosaic": host_ms(lambda: tiered.finalize(frames, handle)),
+    }
+    h2d, d2h = content.nbytes + aux.nbytes, handle[0].numel() * handle[0].element_size()
+    yuv_h2d = yuv.letterbox_batch(frames).nbytes + aux.nbytes
+    gib_s = probe_link_gib_s()
+    print(
+        f"phase tiered: resnet50+yolov8n 640 bf16, {ENGINE_BATCHES}x{BATCH}x{HEIGHT}x{WIDTH} RGB: "
+        f"{fps:.2f} frames/s (process_batch, results held, median of {TIERED_WINDOWS} warm "
+        f"windows {fmt(batch_fps)}; fused engine {fused_fps:.2f} on the same batches), "
+        f"process_stream {statistics.median(stream_fps):.2f} (median of {TIERED_WINDOWS} warm "
+        f"windows of {STREAM_REPEATS * ENGINE_BATCHES} batches {fmt(stream_fps)}; per batch "
+        f"in a stream: caller letterbox {stage_in_stream['letterbox']:.3f}, dispatch "
+        f"{stage_in_stream['dispatch']:.3f}, finalize {stage_in_stream['finalize']:.3f} ms "
+        f"host, medians), "
+        f"{n_boxes / (ENGINE_BATCHES * BATCH):.2f} boxes/frame, process_stream == process_batch, "
+        f"blurred == cv2 mosaic of its own boxes, kept boxes == the fused engine's (letterbox "
+        f"{engine.last_letterbox}, boxes within {box_err:.2e} px), mosaic kernel launches "
+        f"{launches}; ms per batch: host letterbox {stages['letterbox']:.3f}, device program "
+        f"{stages['program']:.3f}, host mosaic {stages['mosaic']:.3f}; bytes per batch: "
+        f"{h2d} in, {d2h} out (fused: {frames.nbytes} each way); engine=auto probe "
+        f"{gib_s:.2f} GiB/s -> {pick_engine(gib_s)} (rgb), {pick_engine(gib_s, 'yuv420')} "
+        f"(yuv420) | transfer yuv420: {yuv_fps:.2f} frames/s, {yuv_boxes} boxes in "
+        f"{ENGINE_BATCHES * BATCH} frames, {yuv_h2d} bytes in per batch",
+        flush=True,
+    )
+    return {"fps": fps, "fused_fps": fused_fps, "stream_fps": statistics.median(stream_fps),
+            "launches": launches, **stages}
+
+
+def check_final_record(source: str, final: str) -> dict:
+    """A repacked record against its source: the same channels; each
+    camera topic keeps its messages from its first keyframe on, with their
+    times and sequence numbers; every other channel byte for byte. Returns
+    the messages per channel of the final record."""
+    from video_desensitization_torch.record.reader import RecordReader
+    from video_desensitization_torch.record.topics import COMPRESSED_IMAGE_TYPE
+    from video_desensitization_torch.video.nal import is_hevc_keyframe
+
+    src, out = RecordReader(source), RecordReader(final)
+    check(set(out.channels) == set(src.channels), "the final record's channels differ")
+    counts = {}
+    for topic, channel in src.channels.items():
+        want, got = list(src.read_messages(topic)), list(out.read_messages(topic))
+        if channel.message_type == COMPRESSED_IMAGE_TYPE:
+            key = next(i for i, (_, m, _) in enumerate(want) if is_hevc_keyframe(bytes(m.data)))
+            want = [(ts, m.header.sequence_num) for _, m, ts in want[key:]]
+            check([(ts, m.header.sequence_num) for _, m, ts in got] == want,
+                  f"{topic}: {len(got)} messages, not the {len(want)} after gating with "
+                  "their times and sequence numbers")
+        else:
+            check(got == want, f"{topic}: non-camera messages changed")
+        counts[topic] = len(got)
+    return counts
+
+
+def phase_record(engine) -> dict:
+    """The record job's stages on the committed fixture, with the tiered
+    pipeline and the fused engine."""
+    import shutil
+    import tempfile
+
+    from video_desensitization_torch.cli.main import main as cli_main
+    from video_desensitization_torch.ops import cuda_mosaic
+    from video_desensitization_torch.pipeline.throughput import TieredPipeline
+    from video_desensitization_torch.pipeline.video_pipeline import process_single_video
+    from video_desensitization_torch.record import lz4block
+    from video_desensitization_torch.record.reader import RecordReader
+    from video_desensitization_torch.record.unpack import read_record2h265_all
+    from video_desensitization_torch.video import av
+    from video_desensitization_torch.video.nal import is_hevc_keyframe
+
+    # The repack re-encodes with libx265 and demuxes with libav: asked
+    # before anything runs, from the codec layer's own state.
+    hevc_encoder = av.native_available()
+    codec = av.codec_path()
+    parts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # A copy: the unpack stages a .tmp_record beside its input.
+        os.makedirs(f"{tmp}/in")
+        fixture = shutil.copy(RECORD_FIXTURE, f"{tmp}/in")
+        t0 = time.perf_counter()
+        streams = read_record2h265_all(fixture, f"{tmp}/h265")
+        unpack_s = time.perf_counter() - t0
+        check(lz4block.native_available(), f"csrc/vdt_lz4.cpp did not load: {lz4block._load_error}")
+        reader = RecordReader(fixture)
+        frames = {}
+        for topic, path in streams.items():
+            payloads = [bytes(m.data) for _, m, _ in reader.read_messages(topic)]
+            key = next(i for i, p in enumerate(payloads) if is_hevc_keyframe(p))
+            check(Path(path).read_bytes() == b"".join(payloads[key:]),
+                  f"{topic}: unpacked stream != its payloads from the first keyframe")
+            frames[topic] = len(payloads) - key
+        check(len(streams) == 2, f"unpacked {len(streams)} camera streams, not 2")
+        parts.append(f"unpacked {len(streams)} streams ({sorted(frames.values())} frames after "
+                     f"gating) in {unpack_s:.2f} s, byte for byte")
+        ext = None if hevc_encoder else ".mp4"
+        tiered = TieredPipeline(engine.face, engine.plate, mosaic_level=engine.mosaic_level)
+        for name, eng in (("tiered", tiered), ("fused", engine)):
+            out_dir = f"{tmp}/{name}"
+            cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
+            t0 = time.perf_counter()
+            for topic, path in streams.items():
+                res = process_single_video(path, out_dir, eng, batch_size=BATCH, output_ext=ext)
+                check(res.success and res.frames == frames[topic], f"{name}: {topic} failed")
+            seconds = time.perf_counter() - t0
+            launches = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+            want = 0 if name == "tiered" else sum(-(-n // BATCH) for n in frames.values())
+            check(launches == want, f"{name}: mosaic kernel launched {launches}x, not {want}")
+            for topic, path in streams.items():
+                stem, src_ext = os.path.splitext(os.path.basename(path))
+                with av.VideoDecoder(f"{out_dir}/{stem}_processed{ext or src_ext}") as dec:
+                    shapes = [f.shape for f in dec]
+                check(shapes == [(HEIGHT, WIDTH, 3)] * frames[topic],
+                      f"{name}: {len(shapes)} of {frames[topic]} frames of {topic} back")
+            parts.append(f"{name}: every frame back at {HEIGHT}x{WIDTH} ({ext or 'h265'}), "
+                         f"mosaic launches {launches}, {seconds:.2f} s")
+        if hevc_encoder:
+            job = f"{tmp}/job"
+            ini = f"{tmp}/job.ini"
+            with open(ini, "w") as f:
+                f.write(
+                    f"[PATHS]\nmodel_path=random\nmodel_weights=random\nrecord_dir={fixture}\n"
+                    f"output_h265_dir={job}/h265\noutput_videos_dir={job}/videos\n"
+                    f"temp_directory_base={job}/tmp\nrecord_output_dir={job}/out\n"
+                    "[SETTINGS]\nbatch_size=8\n[TPU]\nmax_detections=16\nmosaic_level=8\n"
+                )
+            t0 = time.perf_counter()
+            check(cli_main([ini]) == 0, "the CLI's record job failed")
+            counts = check_final_record(fixture, f"{job}/out/{os.path.basename(fixture)}")
+            parts.append(f"record job end to end (main([ini]), HEVC repack): {counts} messages, "
+                         f"{time.perf_counter() - t0:.2f} s")
+        else:
+            parts.append("record job end to end: not run, codec cv2 has no HEVC encoder; "
+                         "held on the CPU by tests/test_torch_record.py")
+    print(f"phase record: {RECORD_FIXTURE.relative_to(REPO)}, codec {codec} | " + " | ".join(parts),
+          flush=True)
+    return {"hevc_encoder": hevc_encoder}
 
 
 def _recording(net, calls):
@@ -465,11 +772,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    repo = Path(__file__).resolve().parent
-    if not (repo / "video_desensitization_torch" / "csrc" / "mosaic.cu").is_file():
-        print(f"chip_smoke: no video_desensitization_torch package in {repo}", file=sys.stderr)
+    if not (REPO / "video_desensitization_torch" / "csrc" / "mosaic.cu").is_file():
+        print(f"chip_smoke: no video_desensitization_torch package in {REPO}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(repo))
+    sys.path.insert(0, str(REPO))
 
     from video_desensitization_torch.bench_util import main_path_engine
 
@@ -479,6 +785,8 @@ def main() -> int:
     main_engine = main_path_engine()
     engine = phase_engine(main_engine)
     yuv = phase_yuv(main_engine, engine["fps"])
+    phase_tiered(main_engine)
+    phase_record(main_engine)
     del main_engine
     phase_stream()
     phase_reference()

@@ -93,3 +93,70 @@ def test_profiled_device_ms_takes_two_agreeing_sessions(monkeypatch, sessions, w
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
     ms, kernels = bench_util.profiled_device_ms(lambda: None, reps=50)
     assert (ms if ms is None else round(ms, 6), kernels) == want
+
+
+def test_check_final_record_holds_a_repack_to_its_source(tmp_path):
+    """The record phase's check of a repacked record, on the committed
+    1080p fixture repacked with its own streams as the processed videos:
+    the camera topics keep their messages from the first keyframe on, the
+    chatter passes; a record that lost a camera message or changed a
+    chatter payload fails."""
+    import shutil
+
+    from video_desensitization_torch.record.reader import RecordReader
+    from video_desensitization_torch.record.repack import write_allH265_record_all
+    from video_desensitization_torch.record.unpack import read_record2h265_all
+    from video_desensitization_torch.record.writer import RecordWriter
+    from video_desensitization_torch.video import av
+
+    if not av.native_available():
+        pytest.skip(f"native av layer unavailable: {av.codec_path()}")
+    (tmp_path / "in").mkdir()
+    src = shutil.copy(chip_smoke.RECORD_FIXTURE, tmp_path / "in")
+    processed = tmp_path / "processed"
+    processed.mkdir()
+    for path in read_record2h265_all(str(src), str(tmp_path / "h265")).values():
+        name = Path(path).name.replace(".h265", "_processed.h265")
+        shutil.copy(path, processed / name)
+    final = write_allH265_record_all(str(src), str(processed), str(tmp_path / "out"))
+    counts = chip_smoke.check_final_record(str(src), final)
+    assert sorted(counts.values()) == [16, 16, 19]
+
+    reader = RecordReader(final)
+    messages = list(reader.read_messages())
+    for drop, topic in (("camera", "/drivers/camera/rear/compressed/image"),
+                        ("chatter", "/misc/chatter")):
+        bad = str(tmp_path / f"{drop}.record")
+        with RecordWriter(bad) as w:
+            for name, ch in reader.channels.items():
+                w.write_channel(name, ch.message_type)
+            last = max(i for i, (t, _, _) in enumerate(messages) if t == topic)
+            for i, (t, m, ts) in enumerate(messages):
+                if i == last:
+                    if drop == "camera":
+                        continue
+                    m = b"changed"
+                w.write_message(t, m, ts)
+        with pytest.raises(RuntimeError, match=topic):
+            chip_smoke.check_final_record(str(src), bad)
+
+
+def test_stream_stage_ms_times_each_stage_and_unwraps():
+    """The tiered phase's per-stage times inside ``process_stream``: one
+    median per stage, every batch still comes back, and the pipeline's own
+    methods are restored after the timed stream."""
+    import numpy as np
+
+    from video_desensitization_torch.detect.face import Retinaface
+    from video_desensitization_torch.pipeline.throughput import TieredPipeline
+
+    face = Retinaface(backbone="mobilenet", input_shape=[64, 64, 3], max_detections=4,
+                      dtype=torch.float32, device="cpu")
+    pipe = TieredPipeline(face, None)
+    batches = [np.random.default_rng(i).integers(0, 256, (2, 48, 80, 3), dtype=np.uint8)
+               for i in range(3)]
+    times = chip_smoke.stream_stage_ms(pipe, batches)
+    assert set(times) == {"letterbox", "dispatch", "finalize"}
+    assert all(ms > 0 for ms in times.values())
+    assert not {"letterbox_batch", "dispatch", "finalize"} & set(vars(pipe))
+    assert len(list(pipe.process_stream(iter(batches)))) == 3

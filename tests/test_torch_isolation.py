@@ -32,7 +32,7 @@ def test_package_imports_without_jax_or_cv2():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 36
+    assert int(count) >= 50
     assert bad == "[]"
 
 

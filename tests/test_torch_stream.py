@@ -1,7 +1,8 @@
 """The port's entry points against the JAX package's: ``process_video_stream``
 (transports rgb, yuv420 and auto, and the fallback to rgb for a source with
-no I420 form), and the CLI (``--video``, ``--images``, ``--profile``, the
-refusals) with one config.ini parsed the same by both packages.
+no I420 form or an engine without an I420 program), and the CLI
+(``--video``, ``--images``, ``--profile``, ``engine = auto``, the refusals)
+with one config.ini parsed the same by both packages.
 
 Small sizes: 96x160 frames, RetinaFace-mobilenet + YOLOv8n at 128 in float32
 with the JAX package's weights for the stream; the CLI's own ResNet-50 at
@@ -19,18 +20,20 @@ import jax
 import jax.numpy as jnp
 
 from video_desensitization_tpu.api.config import load_config as jax_load_config
+from video_desensitization_tpu.cli import main as jax_cli
 from video_desensitization_tpu.detect.face import Retinaface as JaxRetinaface
 from video_desensitization_tpu.detect.plate import PlateDetector as JaxPlateDetector
 from video_desensitization_tpu.pipeline import streaming as jax_streaming
 from video_desensitization_tpu.pipeline.engine import DesensitizationEngine as JaxEngine
 
 from video_desensitization_torch.api.config import load_config
-from video_desensitization_torch.cli.main import build_engine, main
+from video_desensitization_torch.cli.main import build_engine, main, pick_engine, probe_link_gib_s
 from video_desensitization_torch.detect.face import Retinaface
 from video_desensitization_torch.detect.plate import PlateDetector
 from video_desensitization_torch.models.convert import from_jax_variables
 from video_desensitization_torch.pipeline import streaming
 from video_desensitization_torch.pipeline.engine import DesensitizationEngine
+from video_desensitization_torch.pipeline.throughput import TieredPipeline
 from video_desensitization_torch.video import av
 
 
@@ -137,6 +140,23 @@ def test_stream_auto_is_yuv420_and_odd_sizes_fall_back_to_rgb(native, recording,
     assert [(k, f.shape) for k, f in recording["odd.mp4"]] == [("rgb", (95, 161, 3))] * 5
 
 
+def test_stream_falls_back_to_rgb_for_an_engine_without_i420(native, recording, engines, tmp_path):
+    """The tiered pipeline has no I420 program: transport yuv420 or auto
+    hands it RGB frames (the JAX package's gate), and the encoder gets its
+    process_batch results."""
+    _, engine = engines
+    tiered = TieredPipeline(engine.face, engine.plate, mosaic_level=8)
+    src = _source(tmp_path / "in.mp4", 3)
+    with av.VideoDecoder(src) as dec:
+        want = tiered.process_batch(np.stack(list(dec))).frames
+    for transport in ("yuv420", "auto"):
+        stats = streaming.process_video_stream(src, f"{transport}.mp4", tiered, batch_size=2,
+                                               transport=transport)
+        got = recording[f"{transport}.mp4"]
+        assert stats.frames == 3 and [k for k, _ in got] == ["rgb"] * 3
+        np.testing.assert_array_equal(np.stack([f for _, f in got]), want)
+
+
 def _config(tmp_path, model="random", extra="", engine="fused"):
     """A config.ini for the CLI on the CPU: the fused engine at input 128."""
     ini = tmp_path / "config.ini"
@@ -191,22 +211,50 @@ def test_cli_refuses_random_weights_without_opt_in(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "setting, item",
-    [(dict(engine="tiered"), "item 11"), (dict(engine="auto"), "item 11"),
-     (dict(extra="detect_interval=4\n"), "item 12"), (dict(extra="mesh_data=2\n"), "item 17")],
-    ids=["tiered", "auto", "detect_interval", "mesh_data"],
+    "setting, item, record_job",
+    [(dict(extra="detect_interval=4\n"), "item 12", False),
+     (dict(extra="mesh_data=2\n"), "item 17", False),
+     (dict(extra="co_batch=true\n"), "item 13", True)],
+    ids=["detect_interval", "mesh_data", "co_batch"],
 )
-def test_cli_refuses_what_is_not_ported(tmp_path, setting, item):
+def test_cli_refuses_what_is_not_ported(tmp_path, setting, item, record_job):
+    mode = [] if record_job else ["--images", str(tmp_path)]
     with pytest.raises(ValueError, match=item):
-        main([_config(tmp_path, **setting), "--images", str(tmp_path), "--device", "cpu"])
+        main([_config(tmp_path, **setting), *mode, "--device", "cpu"])
 
 
 def test_cli_refuses_the_record_job_and_needs_a_device(tmp_path, monkeypatch):
-    with pytest.raises(ValueError, match="record job"):
-        main([_config(tmp_path), "--device", "cpu"])
+    """The record job (no --video or --images) is driven by the config, so
+    it refuses a missing one or one without every [PATHS] key, as the JAX
+    CLI does, where the one-file modes run with the defaults. No CUDA and
+    no --device: the engine refuses to start."""
+    with pytest.raises(FileNotFoundError):
+        main([str(tmp_path / "missing.ini"), "--device", "cpu"])
+    partial = tmp_path / "partial.ini"
+    partial.write_text("[PATHS]\nmodel_path=random\nmodel_weights=random\n")
+    for cli in (main, jax_cli.main):
+        with pytest.raises(ValueError, match="record_dir"):
+            cli([str(partial), "--device", "cpu"] if cli is main else [str(partial)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_engine(load_config(_config(tmp_path), strict=False))
+
+
+def test_engine_auto_probes_the_link_and_picks_as_jax_does(tmp_path):
+    """engine=auto: the port's thresholds pick what the JAX package's pick
+    at every rate and transfer; the probe gives a positive rate; the build
+    resolves to an engine without changing the config; tiered builds the
+    tiered pipeline."""
+    for rate in (0.5, 2.99, 3.0, 4.0, 5.99, 6.0, 10.0):
+        for transfer in ("rgb", "yuv420"):
+            assert pick_engine(rate, transfer) == jax_cli.pick_engine(rate, transfer)
+    assert pick_engine(4.0) == "tiered" and pick_engine(4.0, "yuv420") == "fused"
+    assert probe_link_gib_s("cpu", size_mb=1, reps=1) > 0
+    cfg = load_config(_config(tmp_path, engine="auto"), strict=False)
+    engine = build_engine(cfg, with_plates=False, device="cpu")
+    assert isinstance(engine, (TieredPipeline, DesensitizationEngine)) and cfg.engine == "auto"
+    cfg.engine = "tiered"
+    assert isinstance(build_engine(cfg, with_plates=False, device="cpu"), TieredPipeline)
 
 
 def test_one_config_parses_the_same_in_both_packages(tmp_path):

@@ -7,7 +7,7 @@ plus the engine's settings under [TPU] (all optional): dtype, mesh_data,
 mosaic_level, max_detections, input_size. The section keeps that name, and
 every key, default and check, so that one config.ini parses the same here
 and in the JAX package; keys the port cannot honour yet are refused by
-``cli.main.build_engine``.
+``cli.main.build_engine`` and ``pipeline.video_pipeline.process_record_job``.
 """
 
 from __future__ import annotations

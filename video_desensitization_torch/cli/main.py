@@ -2,14 +2,20 @@
 
 Usage:
 
+    python -m video_desensitization_torch.cli.main [config.ini]
     python -m video_desensitization_torch.cli.main [config.ini] --video in.mp4 --out out.mp4
     python -m video_desensitization_torch.cli.main [config.ini] --images dir/ --out outdir/
 
-Runs the single-video or image-directory job on one device: ``cuda`` unless
-``--device cpu`` is given. The config.ini is the JAX package's format; the
-settings that need modules not ported yet (the tiered engine, keyframe
-tracking, multi-device meshes, the record job) are refused with the
-``ROADMAP.md`` item that ports them.
+With only a config.ini it runs the record job (unpack the ``.record`` logs
+under ``[PATHS] record_dir``, desensitize every camera stream, repack a new
+record into ``record_output_dir``); ``--video`` and ``--images`` run one
+video file or an image directory. Everything runs on one device: ``cuda``
+unless ``--device cpu`` is given. The config.ini is the JAX package's
+format. ``[TPU] engine`` picks the tiered pipeline (the default: host
+letterbox and mosaic, boxes-only readback), the fused engine, or ``auto``
+(a host-to-device copy probe picks one). The settings that need modules not
+ported yet (keyframe tracking, multi-device meshes, co-batched cameras) are
+refused with the ``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
@@ -57,14 +63,47 @@ def _resolve_checkpoint(path, allow_random: bool, what: str):
     return None
 
 
+def probe_link_gib_s(device=None, size_mb: int = 32, reps: int = 2) -> float:
+    """Host-to-device copy rate in GiB/s (gigaBYTES): the best of ``reps``
+    pageable copies of ``size_mb`` MiB, each waited for. On the CPU it is a
+    host memory copy."""
+    device = resolve_device(device)
+    buf = torch.zeros(size_mb << 20, dtype=torch.uint8)
+
+    def copy():
+        x = buf.to(device, copy=True)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return x
+
+    copy()  # warm-up: context, allocator
+    best = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        copy()
+        best = max(best, size_mb / 1024.0 / (time.perf_counter() - t0))
+    return best
+
+
+# engine=auto thresholds in GiB/s of the probe: the JAX package's values,
+# kept so one config picks the same engine in both packages at the same
+# measured rate. The fused engine moves full frames both ways (about 12.4
+# MB a 1080p RGB frame, half that as I420), the tiered one only the
+# letterbox content in and boxes out, so fused wins only on a fast link.
+AUTO_ENGINE_FUSED_GIB_S = 6.0
+AUTO_ENGINE_FUSED_YUV_GIB_S = 3.0
+
+
+def pick_engine(gib_s: float, transfer: str = "rgb") -> str:
+    """Resolve engine=auto from a measured link rate; yuv420 halves the
+    fused engine's traffic, so its threshold is half as high."""
+    floor = AUTO_ENGINE_FUSED_YUV_GIB_S if transfer == "yuv420" else AUTO_ENGINE_FUSED_GIB_S
+    return "fused" if gib_s >= floor else "tiered"
+
+
 def _refuse_unported(cfg) -> None:
     """Raise for settings whose modules are not ported yet, naming the
     ROADMAP.md item and what to set instead."""
-    if cfg.engine != "fused":
-        raise ValueError(
-            f"[TPU] engine = {cfg.engine} needs the tiered engine, which is not "
-            "ported yet (ROADMAP.md item 11); set [TPU] engine = fused"
-        )
     if cfg.detect_interval > 1:
         raise ValueError(
             f"[TPU] detect_interval = {cfg.detect_interval} needs keyframe "
@@ -80,15 +119,27 @@ def _refuse_unported(cfg) -> None:
 
 
 def build_engine(cfg, with_plates: bool = True, allow_random: bool = False, device=None):
-    """The fused ``DesensitizationEngine`` of ``cfg`` on ``device`` (``cuda``
-    unless the caller passes ``"cpu"``; with neither CUDA nor a device
-    given it raises)."""
+    """The engine of ``cfg`` on ``device`` (``cuda`` unless the caller
+    passes ``"cpu"``; with neither CUDA nor a device given it raises): the
+    tiered pipeline, the fused engine, or for ``engine = auto`` the one
+    ``pick_engine`` takes at the probed link rate (``cfg`` is not changed,
+    so each build probes anew)."""
     from video_desensitization_torch.detect.face import Retinaface
     from video_desensitization_torch.detect.plate import PlateDetector
     from video_desensitization_torch.pipeline.engine import DesensitizationEngine
+    from video_desensitization_torch.pipeline.throughput import TieredPipeline
+    from video_desensitization_torch.utils.logging import get_logger
 
     _refuse_unported(cfg)
     device = resolve_device(device)
+    engine_mode = cfg.engine
+    if engine_mode == "auto":
+        gib_s = probe_link_gib_s(device)
+        engine_mode = pick_engine(gib_s, cfg.transfer)
+        get_logger("cli").info(
+            "engine=auto: link probe %.2f GiB/s -> %s (transfer=%s)",
+            gib_s, engine_mode, cfg.transfer,
+        )
     dtype = DTYPES[cfg.dtype]
     face = Retinaface(
         model_path=_resolve_checkpoint(cfg.model_path, allow_random, "face"),
@@ -108,6 +159,11 @@ def build_engine(cfg, with_plates: bool = True, allow_random: bool = False, devi
             input_shape=(cfg.input_size, cfg.input_size),
             dtype=dtype,
             device=device,
+        )
+    if engine_mode == "tiered":
+        return TieredPipeline(
+            face, plate, mosaic_level=cfg.mosaic_level, transfer=cfg.transfer,
+            anonymizer=cfg.anonymizer,
         )
     return DesensitizationEngine(
         face, plate, mosaic_level=cfg.mosaic_level, anonymizer=cfg.anonymizer
@@ -141,18 +197,18 @@ def main(argv=None) -> int:
         help="capture a torch.profiler trace of the whole job into DIR/trace.json",
     )
     args = p.parse_args(argv)
-    if args.video is None and args.images is None:
-        raise ValueError(
-            "the record job (no --video or --images) is not ported yet "
-            "(ROADMAP.md item 10); pass --video or --images"
-        )
 
     log = setup_logger()
     log.info("torch %s | cuda %s", torch.__version__, torch.cuda.is_available())
 
+    record_job = args.video is None and args.images is None
     try:
-        cfg = load_config(args.config, strict=False)
+        cfg = load_config(args.config, strict=record_job)
     except (FileNotFoundError, ValueError):
+        # The record job is driven by the config: a missing or incomplete
+        # one is an error there. The one-file modes run with the defaults.
+        if record_job:
+            raise
         cfg = PipelineConfig()
     if args.batch_size:
         cfg.batch_size = args.batch_size
@@ -192,7 +248,7 @@ def _run_job(args, cfg, engine, log) -> None:
             "done: %d frames, %d faces, %d plates, %.1f fps end-to-end",
             stats.frames, stats.faces, stats.plates, stats.fps,
         )
-    else:
+    elif args.images:
         from video_desensitization_torch.pipeline.batch import batch_process_images
 
         out = args.out or args.images.rstrip("/") + "_processed"
@@ -200,6 +256,11 @@ def _run_job(args, cfg, engine, log) -> None:
             args.images, out, engine, batch_size=cfg.batch_size
         )
         log.info("done: %d images, %d faces, %d plates", n, faces, plates)
+    else:
+        from video_desensitization_torch.pipeline.video_pipeline import process_record_job
+
+        stats = process_record_job(cfg, engine)
+        log.info("final record: %s", stats.record_path)
 
 
 if __name__ == "__main__":

@@ -41,6 +41,33 @@ def letterbox_params(src_hw: Tuple[int, int], dst_hw: Tuple[int, int]):
     return nh, nw, top, left
 
 
+def letterbox_geometry(image_shapes, dst_hw: Tuple[int, int]) -> np.ndarray:
+    """Host-exact per-image letterbox geometry for a batch: (B, 2)
+    [orig_h, orig_w] -> (B, 4) float32 [nh, nw, top, left] through
+    ``letterbox_params``. Device programs take this as an input: float32 on
+    the device can place the content one pixel off for some source heights
+    (1077 rows at 640: host nh 639, float32 floor 640)."""
+    shapes = np.asarray(image_shapes)
+    out = np.empty((shapes.shape[0], 4), np.float32)
+    for i, (ih, iw) in enumerate(shapes):
+        out[i] = letterbox_params((int(ih), int(iw)), dst_hw)
+    return out
+
+
+def letterbox_host(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """The reference's letterbox with cv2. ``size`` is (width, height) as
+    the reference passes it. Returns the float64 (h, w, 3) canvas the
+    reference builds (``np.ones() * 128``)."""
+    import cv2
+
+    ih, iw = image.shape[:2]
+    w, h = size
+    nh, nw, top, left = letterbox_params((ih, iw), (h, w))
+    canvas = np.ones([h, w, 3]) * PAD_VALUE
+    canvas[top : top + nh, left : left + nw] = cv2.resize(image, (nw, nh))
+    return canvas
+
+
 def preprocess_input(image: torch.Tensor) -> torch.Tensor:
     """Subtract the detector training mean, preserving channel order."""
     return image - torch.tensor(BGR_MEAN, dtype=image.dtype, device=image.device)

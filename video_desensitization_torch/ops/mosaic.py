@@ -202,6 +202,27 @@ def mosaic_host_reference(img: np.ndarray, boxes, level: int = DEFAULT_MOSAIC_LE
     return mosaic_host_inplace(img.copy(), boxes, level)
 
 
+def gaussian_blur_host_inplace(
+    img: np.ndarray, boxes, sigma: float = 6.0, kernel_radius: int = 12
+) -> np.ndarray:
+    """Host form of the gaussian anonymizer (the tiered pipeline's): blur
+    each clipped box in place with cv2, same sigma and radius as
+    ``gaussian_blur_boxes``. cv2 reflects at the box's edges where
+    ``gaussian_blur_boxes`` blurs across them, so the two are alternatives,
+    not bitwise twins."""
+    import cv2
+
+    k = 2 * kernel_radius + 1
+    h, w = img.shape[:2]
+    for x1, y1, x2, y2 in boxes:
+        x1, y1 = max(0, int(x1)), max(0, int(y1))
+        x2, y2 = min(w, int(x2)), min(h, int(y2))
+        if x2 <= x1 or y2 <= y1:
+            continue
+        img[y1:y2, x1:x2] = cv2.GaussianBlur(img[y1:y2, x1:x2], (k, k), sigma)
+    return img
+
+
 def gaussian_blur_boxes(
     frames: torch.Tensor,
     boxes: torch.Tensor,

@@ -1,11 +1,18 @@
 """Streaming video desensitization: overlapped decode | device | encode.
 
 A decoder thread fills a bounded queue of frame batches, the main thread
-dispatches them to the engine (on CUDA the copies and the program run on
-the engine's stream, so the card works on batch N while the host decodes
-N+1 and encodes N-1), and an encoder thread drains the results. No
-intermediate JPEGs, no disk round trip. Every CUDA call is made from the
-main thread; the decoder and encoder threads only run the codec.
+hands them to the engine, and an encoder thread drains the results. No
+intermediate JPEGs, no disk round trip. The decoder and encoder threads
+only run the codec. Where the CUDA calls are made depends on the engine:
+
+- the fused engine: from the main thread, two batches in flight through
+  ``dispatch_batch``/``finalize_batch`` (the copies and the program run on
+  the engine's stream, so the card works on batch N while the host decodes
+  N+1 and encodes N-1);
+- the tiered pipeline (``pipeline/throughput.py``): the main thread hands
+  it the whole batch iterator, and its ``process_stream`` makes the CUDA
+  calls from its own dispatch thread (program) and finalize thread (the
+  wait on each batch's event), each entering the pipeline's stream itself.
 """
 
 from __future__ import annotations
@@ -54,9 +61,8 @@ def process_video_stream(
     fps: Optional[float] = None,
     codec: Optional[str] = None,
     # Decode-side raw-batch queue. Kept shallower than the device stream
-    # depth: each slot pins a full RAW batch (~6.2 MB/frame at 1080p), and
-    # the measured depth win came from the device-stage queue, not here.
-    # Peak RAM ≈ (prefetch_depth + DEFAULT_STREAM_DEPTH + 2) × batch bytes.
+    # depth: each slot holds a full RAW batch (~6.2 MB/frame at 1080p).
+    # Peak RAM ≈ (prefetch_depth + throughput.STREAM_DEPTH + 2) × batch bytes.
     prefetch_depth: int = 3,
     encode_kwargs: Optional[dict] = None,
     transport: str = "rgb",
@@ -72,8 +78,8 @@ def process_video_stream(
     decoder through the engine's I420 program into the encoder: half the
     host-device bytes, no sws RGB pass on either side; needs even frame
     dims — other streams fall back to rgb without losing a frame), or
-    "auto" (yuv420 whenever the engine supports it: the fused engine
-    always does)."""
+    "auto" (yuv420 whenever the engine supports it: an engine with
+    ``process_batch_yuv``, the fused one; others take rgb)."""
     log = get_logger("stream")
     stats = StreamStats()
     t0 = time.time()
@@ -83,7 +89,14 @@ def process_video_stream(
     if codec is None:
         codec = default_codec_for(output_path)
 
-    use_yuv = transport in ("yuv420", "auto")
+    use_yuv = transport in ("yuv420", "auto") and hasattr(
+        engine, "process_batch_yuv"
+    )
+    if transport == "yuv420" and not use_yuv:
+        log.info(
+            "transport=yuv420 needs an engine with process_batch_yuv "
+            "(fused); falling back to rgb"
+        )
 
     in_q: "queue.Queue" = queue.Queue(maxsize=prefetch_depth)
     out_q: "queue.Queue" = queue.Queue(maxsize=prefetch_depth)
@@ -207,10 +220,29 @@ def process_video_stream(
 
 
 def _run_device_stage(engine, in_q, out_q, stats, timer):
-    """Keep two batches in flight through ``dispatch_batch`` /
-    ``finalize_batch`` (each handle holds its pinned input until it is
-    finalized), so the copies and the program overlap the decode and encode
-    threads instead of running batch by batch."""
+    if hasattr(engine, "process_stream"):
+        # The tiered pipeline: hand the whole batch stream over so its own
+        # stages (letterbox | copy and program | boxes and host mosaic)
+        # overlap across batches; process_batch would run them in turn.
+        def batches():
+            while True:
+                b = in_q.get()
+                if b is _SENTINEL:
+                    return
+                yield b
+
+        with timer.stage("stream"):
+            for res in engine.process_stream(batches()):
+                stats.frames += res.frames.shape[0]
+                stats.faces += res.num_faces
+                stats.plates += res.num_plates
+                with timer.stage("wait_encode"):
+                    out_q.put(res.frames)
+        return
+    # The fused engine: keep two batches in flight through dispatch_batch /
+    # finalize_batch (each handle holds its pinned input until it is
+    # finalized), so the copies and the program overlap the decode and
+    # encode threads instead of running batch by batch.
     depth = 2
     pending: "deque" = deque()
 
