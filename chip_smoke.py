@@ -44,7 +44,27 @@ Phases, each printing one line and asserting:
      then the CLI's default engine (no engine key: the tiered pipeline
      through process_stream); every frame back, the kernel's calls counted
      (0 on the default), and the codec path (native libav or cv2);
-  9. reference: the card against the CPU on the same weights in float32:
+  9. tracked: keyframe tracking (TrackingEngine, interval 4, keyframe
+     batches of 8) over the same engine on 64 1080p frames, RGB then I420:
+     every frame back in order, 2 (RGB) and 4 (I420) kernel calls, each
+     keyframe's detections equal to process_batch on the same keyframes
+     and its pixels the plain mosaic of them followed by the host mosaic
+     of its coasted boxes, each gap frame the cv2 mosaic of its raw frame
+     under its own boxes, interval 1 equal to the engine; frames/s against
+     the fused engine streamed two batches deep over the same frames, in
+     alternating warm windows, and the host blur ms per gap frame;
+ 10. multicam: the record fixture's two camera streams co-batched
+     (process_videos_cobatched) four ways -- fused RGB, fused yuv420,
+     tiered, fused at detect_interval 4 -- every frame back per camera,
+     the kernel's calls counted (4, 8, 0, 1), the per-camera counts and
+     per-frame boxes equal to process_single_video's; the CLI's co-batched
+     record job only where HEVC can be encoded;
+ 11. serve: the resident service (DesensitizationService) on the fused
+     engine serving one 24-frame 1080p video job from an inbox with its
+     .complete marker, /healthz and /status read while it runs, the
+     journal line, the output's frames and 3 kernel calls; then
+     cli.doctor.collect() on one line;
+ 12. reference: the card against the CPU on the same weights in float32:
      both networks, then the rest of the engine's program (letterbox
      canvas, decode, NMS, inverse letterbox, box order);
 then a "kernels" JSON line, the nvidia-smi line, and the result line.
@@ -70,6 +90,8 @@ WARMUP_BATCHES = 2
 TIERED_WINDOWS = 3
 STREAM_REPEATS = 3
 TIMED_CALLS = 50
+TRACK_FRAMES, TRACK_INTERVAL, TRACK_WINDOWS = 64, 4, 3
+TRACK_TIMED_FRAMES = 256  # 8 keyframe batches at interval 4 and batch 8
 REPO = Path(__file__).resolve().parent
 RECORD_FIXTURE = REPO / "tests" / "fixtures" / "torch_record_1080p.record"
 
@@ -349,45 +371,61 @@ def phase_yuv(engine, rgb_fps: float) -> dict:
     return {"fps": fps, "launches": launches, "y": y, "uv": uv}
 
 
+def write_stream_video(path: str) -> str:
+    """The stream and serve phases' input: STREAM_FRAMES 1080p frames of
+    8x8-pixel random blocks from seed 5, mpeg4."""
+    import numpy as np
+
+    from video_desensitization_torch.video import av
+
+    rng = np.random.default_rng(5)
+    with av.VideoEncoder(path, WIDTH, HEIGHT, fps=24, codec="mpeg4") as enc:
+        for _ in range(STREAM_FRAMES):
+            coarse = rng.integers(0, 256, (HEIGHT // 8, WIDTH // 8, 3), dtype=np.uint8)
+            enc.write(coarse.repeat(8, axis=0).repeat(8, axis=1))
+    return path
+
+
 def phase_stream() -> dict:
     """``cli.main.main`` on a short synthetic 1080p video at full width:
     the fused engine with transfer = yuv420, then rgb, then a config with no
     ``engine`` or ``transfer`` key, so the CLI takes its default (the tiered
-    pipeline on rgb, through ``process_stream``). Its frames/s is the CLI's
-    wall time (engine build and codec included) and is bound by the codec,
-    not the card."""
+    pipeline on rgb, through ``process_stream``), then that config with
+    ``detect_interval = 4`` (``build_engine`` wraps the tiered pipeline in
+    ``TrackingEngine``, whose ``process_stream`` the stream job takes). Its
+    frames/s is the CLI's wall time (engine build and codec included) and
+    is bound by the codec, not the card."""
     import tempfile
-
-    import numpy as np
 
     from video_desensitization_torch.cli.main import main as cli_main
     from video_desensitization_torch.ops import cuda_mosaic
     from video_desensitization_torch.pipeline.throughput import TieredPipeline
+    from video_desensitization_torch.pipeline.tracking import TrackingEngine
     from video_desensitization_torch.video import av
 
-    rng = np.random.default_rng(5)
     batches = -(-STREAM_FRAMES // BATCH)
-    streams = []
-    stream_of = TieredPipeline.process_stream
+    streams = {TieredPipeline: [], TrackingEngine: []}
+    stream_of = {cls: cls.process_stream for cls in streams}
 
-    def counted_stream(self, *args, **kwargs):
-        streams.append(self)
-        return stream_of(self, *args, **kwargs)
+    def counting(cls):
+        def counted_stream(self, *args, **kwargs):
+            streams[cls].append(self)
+            return stream_of[cls](self, *args, **kwargs)
+        return counted_stream
 
     parts = []
     with tempfile.TemporaryDirectory() as tmp:
-        src = f"{tmp}/in.mp4"
-        with av.VideoEncoder(src, WIDTH, HEIGHT, fps=24, codec="mpeg4") as enc:
-            for _ in range(STREAM_FRAMES):
-                coarse = rng.integers(0, 256, (HEIGHT // 8, WIDTH // 8, 3), dtype=np.uint8)
-                enc.write(coarse.repeat(8, axis=0).repeat(8, axis=1))
-        # (name, [TPU] keys, mosaic kernel calls a batch)
+        src = write_stream_video(f"{tmp}/in.mp4")
+        # (name, [TPU] keys, mosaic kernel calls a batch, tiered streams,
+        # tracked streams over the tiered pipeline)
         passes = [
-            ("fused yuv420", "engine=fused\ntransfer=yuv420\n", 2),
-            ("fused rgb", "engine=fused\ntransfer=rgb\n", 1),
-            ("default (tiered rgb)", "", 0),
+            ("fused yuv420", "engine=fused\ntransfer=yuv420\n", 2, 0, 0),
+            ("fused rgb", "engine=fused\ntransfer=rgb\n", 1, 0, 0),
+            ("default (tiered rgb)", "", 0, 1, 0),
+            (f"default, detect_interval {TRACK_INTERVAL} (tracked tiered rgb)",
+             f"detect_interval={TRACK_INTERVAL}\n", 0, 0, 1),
         ]
-        for i, (name, keys, per_batch) in enumerate(passes):
+        for i, (name, keys, per_batch, n_tiered, n_tracked) in enumerate(passes):
             ini = f"{tmp}/{i}.ini"
             with open(ini, "w") as f:
                 f.write(
@@ -397,28 +435,34 @@ def phase_stream() -> dict:
                 )
             out = f"{tmp}/out_{i}.mp4"
             cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
-            streams.clear()
-            TieredPipeline.process_stream = counted_stream
+            for cls, seen in streams.items():
+                seen.clear()
+                cls.process_stream = counting(cls)
             try:
                 t0 = time.perf_counter()
                 rc = cli_main([ini, "--video", src, "--out", out, "--allow-random-weights"])
                 seconds = time.perf_counter() - t0
             finally:
-                TieredPipeline.process_stream = stream_of
+                for cls in streams:
+                    cls.process_stream = stream_of[cls]
             launches = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
             check(rc == 0, f"{name}: CLI returned {rc}")
             check(launches == per_batch * batches,
                   f"{name}: mosaic kernel called {launches}x in {batches} batches")
-            tiered = len(streams) == 1 and streams[0].transfer == "rgb"
-            check(tiered == (per_batch == 0),
-                  f"{name}: {len(streams)} tiered streams ran, not {int(per_batch == 0)}")
+            tiered, tracked = streams[TieredPipeline], streams[TrackingEngine]
+            check(len(tiered) == n_tiered and all(s.transfer == "rgb" for s in tiered),
+                  f"{name}: {len(tiered)} tiered rgb streams ran, not {n_tiered}")
+            check(len(tracked) == n_tracked and all(
+                isinstance(s.base, TieredPipeline) and s.base.transfer == "rgb"
+                and s.interval == TRACK_INTERVAL and s.detect_batch == BATCH for s in tracked),
+                f"{name}: {len(tracked)} tracked tiered rgb streams ran, not {n_tracked}")
             with av.VideoDecoder(out) as dec:
                 frames = [f.shape for f in dec]
             check(frames == [(HEIGHT, WIDTH, 3)] * STREAM_FRAMES,
                   f"{name}: {len(frames)} of {STREAM_FRAMES} frames back")
             parts.append(
                 f"{name}: {STREAM_FRAMES} frames back, mosaic calls {launches} in {batches} "
-                f"batches, tiered process_stream runs {len(streams)}, "
+                f"batches, tiered process_stream runs {len(tiered)}, tracked {len(tracked)}, "
                 f"{STREAM_FRAMES / seconds:.2f} frames/s over the CLI's wall time "
                 f"({seconds:.2f} s, engine build and codec included: codec-bound)"
             )
@@ -684,6 +728,390 @@ def phase_record(engine) -> dict:
     return {"hevc_encoder": hevc_encoder}
 
 
+def fused_stream(engine, batches, depth: int = 2) -> list:
+    """The fused engine over ``batches`` as the stream job drives it:
+    ``depth`` batches in flight through dispatch_batch / finalize_batch,
+    results held."""
+    from collections import deque
+
+    pending, out = deque(), []
+    for frames in batches:
+        pending.append(engine.dispatch_batch(frames))
+        if len(pending) > depth:
+            out.append(engine.finalize_batch(pending.popleft()))
+    while pending:
+        out.append(engine.finalize_batch(pending.popleft()))
+    return out
+
+
+def check_tracked(engine, raw, results) -> dict:
+    """A tracked stream's results against its raw frames: the keyframes'
+    detections equal to ``engine.process_batch`` on the same keyframes
+    (0 px); each keyframe the plain mosaic of those boxes (on the card for
+    the fused engine, cv2 for the tiered pipeline, whose mosaic is cv2)
+    followed by the cv2 mosaic of its coasted boxes; each gap frame the cv2
+    mosaic of its raw frame under its own boxes. Returns box counts."""
+    import numpy as np
+    import torch
+
+    from video_desensitization_torch.ops.mosaic import mosaic_boxes_batch_, mosaic_i420_batch
+    from video_desensitization_torch.pipeline.tracking import blur_host_inplace
+
+    level = engine.mosaic_level
+    yuv = raw.ndim == 3
+    fused = hasattr(engine, "process_batch_yuv")
+    check(len(results) == len(raw), f"{len(results)} results for {len(raw)} frames")
+    kf_idx = list(range(0, len(raw), TRACK_INTERVAL))
+    coasted = gap_boxes = 0
+    for start in range(0, len(kf_idx), BATCH):
+        idx = kf_idx[start : start + BATCH]
+        frames = raw[idx]
+        base = engine.process_batch_yuv(frames) if yuv else engine.process_batch(frames)
+        if fused:
+            dev_boxes, dev_valid = kept_boxes(base, len(idx))
+            dev = torch.from_numpy(frames).cuda()
+            plain = (mosaic_i420_batch(dev, dev_boxes, dev_valid, level) if yuv
+                     else mosaic_boxes_batch_(dev, dev_boxes, dev_valid, level)).cpu().numpy()
+        else:
+            plain = frames.copy()
+            for j in range(len(idx)):
+                blur_host_inplace(plain[j], base.face_boxes[j] + base.plate_boxes[j], level)
+        for j, i in enumerate(idx):
+            r = results[i]
+            nf, np_ = len(base.face_boxes[j]), len(base.plate_boxes[j])
+            check(r.face_boxes[0][:nf] == base.face_boxes[j]
+                  and r.plate_boxes[0][:np_] == base.plate_boxes[j],
+                  f"keyframe {i}: detections differ from process_batch")
+            coast = r.face_boxes[0][nf:] + r.plate_boxes[0][np_:]
+            coasted += len(coast)
+            want = plain[j].copy()
+            blur_host_inplace(want, coast, level)
+            check(np.array_equal(r.frames[0], want),
+                  f"keyframe {i} != plain mosaic of its boxes + host mosaic of its coasted boxes")
+    for i in range(len(raw)):
+        if i % TRACK_INTERVAL:
+            r = results[i]
+            boxes = r.face_boxes[0] + r.plate_boxes[0]
+            gap_boxes += len(boxes)
+            want = raw[i].copy()
+            blur_host_inplace(want, boxes, level)
+            check(r.frames.shape == (1, *raw.shape[1:]) and np.array_equal(r.frames[0], want),
+                  f"gap frame {i} != cv2 mosaic of its raw frame under its boxes")
+    n_gap = len(raw) - len(kf_idx)
+    return {"coasted_per_kf": coasted / len(kf_idx), "boxes_per_gap": gap_boxes / n_gap}
+
+
+def phase_tracked(engine) -> dict:
+    """Keyframe tracking over the fused engine at full width, on RGB and
+    I420 frames, and over the tiered pipeline on the same detectors (the
+    CLI's default engine) on RGB. The tracked stream blurs gap frames in
+    place in the batches it is given, so each run gets a copy and the raw
+    frames stay for the checks."""
+    import numpy as np
+
+    from video_desensitization_torch.ops import cuda_mosaic
+    from video_desensitization_torch.pipeline import tracking
+    from video_desensitization_torch.pipeline.throughput import TieredPipeline
+
+    rng = np.random.default_rng(8)
+    raw = {
+        "rgb": rng.integers(0, 256, (TRACK_FRAMES, HEIGHT, WIDTH, 3), dtype=np.uint8),
+        "i420": rng.integers(0, 256, (TRACK_FRAMES, HEIGHT * 3 // 2, WIDTH), dtype=np.uint8),
+    }
+    tiered = TieredPipeline(engine.face, engine.plate, mosaic_level=engine.mosaic_level)
+
+    def batches_of(frames):
+        return [frames[i : i + BATCH] for i in range(0, len(frames), BATCH)]
+
+    def tracked(frames, interval=TRACK_INTERVAL, base=engine):
+        eng = tracking.TrackingEngine(base, interval=interval, detect_batch=BATCH)
+        return list(eng.process_stream(iter(batches_of(frames))))
+
+    launches, stats, parts = {}, {}, []
+    # (name, base engine, frames, kernel calls per keyframe batch)
+    runs = [("rgb", engine, raw["rgb"], 1), ("i420", engine, raw["i420"], 2),
+            ("tiered rgb", tiered, raw["rgb"], 0)]
+    for mode, base, frames, per_batch in runs:
+        cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
+        results = tracked(frames.copy(), base=base)
+        launches[mode] = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+        want = (TRACK_FRAMES // TRACK_INTERVAL // BATCH) * per_batch
+        check(launches[mode] == want, f"{mode}: mosaic kernel called {launches[mode]}x, not {want}")
+        stats[mode] = check_tracked(base, frames, results)
+        same = tracked(frames.copy(), interval=1, base=base)
+        process = base.process_batch_yuv if mode == "i420" else base.process_batch
+        for got, b in zip(same, batches_of(frames)):
+            res = process(b)
+            check(np.array_equal(got.frames, res.frames) and got.face_boxes == res.face_boxes
+                  and got.plate_boxes == res.plate_boxes, f"{mode}: interval 1 != the engine")
+        parts.append(f"{mode}: {TRACK_FRAMES} frames back in order, mosaic calls {launches[mode]}, "
+                     f"{stats[mode]['coasted_per_kf']:.2f} coasted boxes a keyframe, "
+                     f"{stats[mode]['boxes_per_gap']:.2f} boxes a gap frame")
+        del results, same
+
+    # Host blur of a gap frame alone: each RGB gap frame under its boxes.
+    results = tracked(raw["rgb"].copy())
+    blur_ms = []
+    for i in range(TRACK_FRAMES):
+        if i % TRACK_INTERVAL:
+            frame = raw["rgb"][i].copy()
+            boxes = results[i].face_boxes[0] + results[i].plate_boxes[0]
+            t0 = time.perf_counter()
+            tracking.blur_host_inplace(frame, boxes, engine.mosaic_level)
+            blur_ms.append((time.perf_counter() - t0) * 1e3)
+    del results
+
+    # Timed windows over TRACK_TIMED_FRAMES frames: TRACK_TIMED_FRAMES /
+    # TRACK_INTERVAL / BATCH keyframe batches, most of them beyond the
+    # tracked stream's DEPTH in flight, so the windows see its steady state
+    # and not only its fill and drain. Each tracked window gets a fresh copy
+    # of the raw frames, made outside its clock. The third stream is a
+    # diagnostic: the tracked stream with the host blur skipped (its frames
+    # are not desensitized), so the difference is the blur's share.
+    timed = np.random.default_rng(9).integers(
+        0, 256, (TRACK_TIMED_FRAMES, HEIGHT, WIDTH, 3), dtype=np.uint8)
+    blur = tracking.blur_host_inplace
+    fps = {"fused": [], "tracked": [], "no blur": []}
+    for _ in range(TRACK_WINDOWS):
+        t0 = time.perf_counter()
+        held = fused_stream(engine, batches_of(timed))
+        fps["fused"].append(TRACK_TIMED_FRAMES / (time.perf_counter() - t0))
+        del held
+        for name in ("tracked", "no blur"):
+            work = timed.copy()
+            tracking.blur_host_inplace = blur if name == "tracked" else (lambda *a: None)
+            try:
+                t0 = time.perf_counter()
+                held = tracked(work)
+                fps[name].append(TRACK_TIMED_FRAMES / (time.perf_counter() - t0))
+            finally:
+                tracking.blur_host_inplace = blur
+            check(len(held) == TRACK_TIMED_FRAMES, f"{name}: {len(held)} results")
+            del held, work
+    med = {name: statistics.median(v) for name, v in fps.items()}
+    print(
+        f"phase tracked: TrackingEngine(interval {TRACK_INTERVAL}, detect_batch {BATCH}, "
+        f"{tracking.DEPTH} keyframe batches in flight, {tracking.BLUR_WORKERS} blur threads) over "
+        f"resnet50+yolov8n 640 bf16 on {TRACK_FRAMES}x{HEIGHT}x{WIDTH} | " + " | ".join(parts)
+        + f" | keyframe detections == process_batch (0 px), keyframes == plain mosaic + host "
+        f"mosaic of coasted boxes, gap frames == cv2 mosaic of their boxes, interval 1 == the "
+        f"engine, on all three | RGB, {TRACK_TIMED_FRAMES} frames "
+        f"({TRACK_TIMED_FRAMES // TRACK_INTERVAL // BATCH} keyframe batches), results held, "
+        f"median of {TRACK_WINDOWS} alternating warm windows: tracked stream "
+        f"{med['tracked']:.2f} frames/s {fmt(fps['tracked'])}, fused engine streamed 2 batches "
+        f"deep {med['fused']:.2f} {fmt(fps['fused'])}, tracked with the host blur skipped "
+        f"(diagnostic, frames not desensitized) {med['no blur']:.2f} {fmt(fps['no blur'])}; host "
+        f"blur of one gap frame {statistics.median(blur_ms):.3f} ms (median, cv2 mosaic on one "
+        f"thread)",
+        flush=True,
+    )
+    return {"launches": launches, "fps": med["tracked"], "fused_fps": med["fused"],
+            "blur_ms": statistics.median(blur_ms)}
+
+
+class BoxRecorder:
+    """An engine's stand-in that keeps each finalized frame's boxes (faces
+    then plates) under a hash of the frame it was given. dispatch_batch and
+    finalize_batch may run on two threads; their FIFO order pairs them."""
+
+    def __init__(self, engine):
+        from collections import deque
+
+        self.engine, self.boxes, self._keys = engine, {}, deque()
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def dispatch_batch(self, frames):
+        import hashlib
+
+        self._keys.append([hashlib.blake2b(f.tobytes(), digest_size=16).digest() for f in frames])
+        return self.engine.dispatch_batch(frames)
+
+    def finalize_batch(self, handle):
+        res = self.engine.finalize_batch(handle)
+        for key, fb, pb in zip(self._keys.popleft(), res.face_boxes, res.plate_boxes):
+            self.boxes[key] = fb + pb
+        return res
+
+
+def phase_multicam(engine) -> dict:
+    """process_videos_cobatched on the two camera streams of the record
+    fixture, four ways, against process_single_video on the same streams."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from video_desensitization_torch.cli.main import main as cli_main
+    from video_desensitization_torch.ops import cuda_mosaic
+    from video_desensitization_torch.pipeline.multicam import process_videos_cobatched
+    from video_desensitization_torch.pipeline.throughput import TieredPipeline
+    from video_desensitization_torch.pipeline.video_pipeline import process_single_video
+    from video_desensitization_torch.record.unpack import read_record2h265_all
+    from video_desensitization_torch.video import av
+
+    hevc_encoder = av.native_available()
+    tiered = TieredPipeline(engine.face, engine.plate, mosaic_level=engine.mosaic_level)
+    parts, launches = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/in")
+        fixture = shutil.copy(RECORD_FIXTURE, f"{tmp}/in")
+        streams = read_record2h265_all(fixture, f"{tmp}/h265")
+        cams = {os.path.splitext(os.path.basename(p))[0]: p for p in streams.values()}
+        # Each stream alone through process_single_video, per transport:
+        # the yuv420 runs' detectors see the I420 frames' RGB, not the
+        # decoded RGB, so each co-batched run is held against its own.
+        single = BoxRecorder(engine)
+        counts = {"rgb": {}, "yuv420": {}}
+        for transport, eng in (("rgb", single), ("yuv420", engine)):
+            for cam, path in cams.items():
+                res = process_single_video(path, f"{tmp}/single_{transport}", eng,
+                                           batch_size=BATCH, output_ext=".mp4",
+                                           transport=transport)
+                check(res.success, f"process_single_video failed on {cam} ({transport})")
+                counts[transport][cam] = res
+        # (name, engine, transport, detect_interval, kernel calls)
+        runs = [("fused rgb", BoxRecorder(engine), "rgb", 1, 4),
+                ("fused yuv420", engine, "yuv420", 1, 8),
+                ("tiered", tiered, "rgb", 1, 0),
+                (f"fused interval {TRACK_INTERVAL}", engine, "rgb", TRACK_INTERVAL, 1)]
+        box_err = box_excess = 0.0
+        for k, (name, eng, transport, interval, want) in enumerate(runs):
+            jobs = {cam: (path, f"{tmp}/run{k}/{cam}_processed.mp4") for cam, path in cams.items()}
+            os.makedirs(f"{tmp}/run{k}")
+            cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
+            t0 = time.perf_counter()
+            stats = process_videos_cobatched(jobs, eng, batch_size=BATCH, transport=transport,
+                                             detect_interval=interval)
+            seconds = time.perf_counter() - t0
+            launches[name] = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+            check(launches[name] == want,
+                  f"multicam {name}: mosaic kernel called {launches[name]}x, not {want}")
+            for cam, (_, out) in jobs.items():
+                st = stats[cam]
+                check(st.error is None, f"multicam {name}: camera {cam} failed: {st.error}")
+                alone = counts[transport][cam]
+                with av.VideoDecoder(out) as dec:
+                    shapes = [f.shape for f in dec]
+                check(st.frames == alone.frames and shapes == [(HEIGHT, WIDTH, 3)] * alone.frames,
+                      f"multicam {name}: {st.frames} frames, {len(shapes)} decoded of "
+                      f"{alone.frames} for {cam}")
+                if interval == 1:
+                    check((st.faces, st.plates) == (alone.faces, alone.plates),
+                          f"multicam {name}: {cam} counts {(st.faces, st.plates)} != "
+                          f"process_single_video's {(alone.faces, alone.plates)}")
+            if isinstance(eng, BoxRecorder):
+                check(set(eng.boxes) == set(single.boxes), "multicam saw other frames")
+                for key, want_boxes in single.boxes.items():
+                    got = eng.boxes[key]
+                    check(len(got) == len(want_boxes), "batch mates changed a frame's box count")
+                    if got:
+                        a, b = np.asarray(got), np.asarray(want_boxes)
+                        box_err = max(box_err, float(np.abs(a - b).max()))
+                        # Random weights put box edges far outside the frame,
+                        # where a float32 ulp exceeds 1e-3 px: the tolerance
+                        # is phase reference's, 1e-3 px + 1e-5 of the value.
+                        box_excess = max(box_excess, float((np.abs(a - b) - 1e-5 * np.abs(b)).max()))
+                check(box_excess <= 1e-3, f"batch mates moved a box by {box_err} px")
+            parts.append(f"{name}: {sum(s.frames for s in stats.values())} frames back "
+                         f"({', '.join(f'{c} {s.frames}' for c, s in stats.items())}), "
+                         f"{sum(s.faces + s.plates for s in stats.values())} boxes, "
+                         f"mosaic calls {launches[name]}, {seconds:.2f} s")
+        parts.append(f"counts at interval 1 == process_single_video's on the same transport; "
+                     f"per-frame boxes of "
+                     f"fused rgb within {box_err:.2e} px of it (limit 1e-3 px + 1e-5 of the "
+                     f"coordinate)")
+        if hevc_encoder:
+            job = f"{tmp}/job"
+            ini = f"{tmp}/job.ini"
+            with open(ini, "w") as f:
+                f.write(
+                    f"[PATHS]\nmodel_path=random\nmodel_weights=random\nrecord_dir={fixture}\n"
+                    f"output_h265_dir={job}/h265\noutput_videos_dir={job}/videos\n"
+                    f"temp_directory_base={job}/tmp\nrecord_output_dir={job}/out\n"
+                    "[SETTINGS]\nbatch_size=8\n[TPU]\nmax_detections=16\nmosaic_level=8\n"
+                    "co_batch=true\n"
+                )
+            check(cli_main([ini]) == 0, "the CLI's co-batched record job failed")
+            record = check_final_record(fixture, f"{job}/out/{os.path.basename(fixture)}")
+            parts.append(f"co-batched record job end to end (main([ini])): {record} messages")
+        else:
+            parts.append("co-batched record job end to end: not run, codec cv2 has no HEVC "
+                         "encoder; held on the CPU by tests/test_torch_multicam.py")
+    print(f"phase multicam: {len(cams)} streams of {RECORD_FIXTURE.relative_to(REPO)}, batch "
+          f"{BATCH}, .mp4 outputs | " + " | ".join(parts), flush=True)
+    return {"launches": launches}
+
+
+def phase_serve(engine) -> dict:
+    """The resident service on the fused engine: one video job."""
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from video_desensitization_torch.api.config import PipelineConfig
+    from video_desensitization_torch.cli import doctor
+    from video_desensitization_torch.ops import cuda_mosaic
+    from video_desensitization_torch.pipeline.service import (
+        JOURNAL_NAME,
+        DesensitizationService,
+        ServiceConfig,
+    )
+    from video_desensitization_torch.video import av
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/inbox")
+        write_stream_video(f"{tmp}/inbox/in.mp4")
+        open(f"{tmp}/inbox/in.mp4.complete", "w").close()
+        svc = DesensitizationService(
+            ServiceConfig(inbox_dir=f"{tmp}/inbox", output_dir=f"{tmp}/out",
+                          poll_interval_s=0.1, http_port=0),
+            PipelineConfig(batch_size=BATCH), engine,
+        )
+        base = f"http://127.0.0.1:{svc.http_port}"
+        cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
+        handled = []
+        t0 = time.perf_counter()
+        worker = threading.Thread(target=lambda: handled.append(svc.run(max_jobs=1)), daemon=True)
+        worker.start()
+        healthz, busy = None, False
+        while worker.is_alive():
+            try:
+                healthz = urllib.request.urlopen(f"{base}/healthz", timeout=5).read()
+                status = json.loads(urllib.request.urlopen(f"{base}/status", timeout=5).read())
+            except (urllib.error.URLError, ConnectionError):
+                break  # the job finished and the endpoint shut down
+            busy |= status["current"] == "in.mp4"
+            if busy:
+                break
+            time.sleep(0.02)
+        worker.join(timeout=600)
+        seconds = time.perf_counter() - t0
+        launches = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+        check(handled == [1], f"the service handled {handled} jobs, not 1")
+        check(healthz == b"ok\n" and busy, f"/healthz {healthz!r}, /status busy with the job {busy}")
+        with open(f"{tmp}/out/{JOURNAL_NAME}") as f:
+            journal = [json.loads(line) for line in f]
+        check(len(journal) == 1 and journal[0]["ok"] and journal[0]["frames"] == STREAM_FRAMES,
+              f"journal {journal}")
+        with av.VideoDecoder(f"{tmp}/out/in_processed.mp4") as dec:
+            frames = [f.shape for f in dec]
+        check(frames == [(HEIGHT, WIDTH, 3)] * STREAM_FRAMES, f"{len(frames)} frames back")
+        want = -(-STREAM_FRAMES // BATCH)
+        check(launches == want, f"service: mosaic kernel called {launches}x, not {want}")
+        check(os.path.exists(f"{tmp}/inbox/.done/in.mp4"), "input not archived")
+    print(f"phase serve: DesensitizationService on the resident fused engine, one "
+          f"{STREAM_FRAMES}-frame 1080p video job with its .complete marker: /healthz ok and "
+          f"/status busy with the job while it ran, journal ok with {journal[0]['frames']} "
+          f"frames and {journal[0]['faces'] + journal[0]['plates']} boxes, {len(frames)} frames "
+          f"back, mosaic calls {launches}, {seconds:.2f} s from run() to its end (poll, claim, "
+          f"decode, engine, encode; codec-bound)", flush=True)
+    print("phase serve: doctor " + json.dumps(doctor.collect()), flush=True)
+    return {"launches": launches}
+
+
 def _recording(net, calls):
     """``net``, keeping a CPU copy of each call's input and outputs."""
     def run(x):
@@ -787,6 +1215,9 @@ def main() -> int:
     yuv = phase_yuv(main_engine, engine["fps"])
     phase_tiered(main_engine)
     phase_record(main_engine)
+    tracked = phase_tracked(main_engine)
+    multicam = phase_multicam(main_engine)
+    serve = phase_serve(main_engine)
     del main_engine
     phase_stream()
     phase_reference()
@@ -810,6 +1241,9 @@ def main() -> int:
         "i420_y_bound_ms": yuv["y"]["bound_ms"],
         "i420_uv_ms": yuv["uv"]["ms"],
         "i420_uv_bound_ms": yuv["uv"]["bound_ms"],
+        "tracked_launches": tracked["launches"],
+        "multicam_launches": multicam["launches"],
+        "serve_launches": serve["launches"],
     }
     print(json.dumps({"kernels": [kernel]}))
     print(smi)

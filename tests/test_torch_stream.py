@@ -1,7 +1,7 @@
 """The port's entry points against the JAX package's: ``process_video_stream``
 (transports rgb, yuv420 and auto, and the fallback to rgb for a source with
 no I420 form or an engine without an I420 program), and the CLI
-(``--video``, ``--images``, ``--profile``, ``engine = auto``, the refusals)
+(``--video``, ``--images``, ``--profile``, ``engine = auto``, the refusal)
 with one config.ini parsed the same by both packages.
 
 Small sizes: 96x160 frames, RetinaFace-mobilenet + YOLOv8n at 128 in float32
@@ -211,16 +211,15 @@ def test_cli_refuses_random_weights_without_opt_in(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "setting, item, record_job",
-    [(dict(extra="detect_interval=4\n"), "item 12", False),
-     (dict(extra="mesh_data=2\n"), "item 17", False),
-     (dict(extra="co_batch=true\n"), "item 13", True)],
-    ids=["detect_interval", "mesh_data", "co_batch"],
+    "setting, item",
+    [(dict(extra="mesh_data=2\n"), "item 17")],
+    ids=["mesh_data"],
 )
-def test_cli_refuses_what_is_not_ported(tmp_path, setting, item, record_job):
-    mode = [] if record_job else ["--images", str(tmp_path)]
+def test_cli_refuses_what_is_not_ported(tmp_path, setting, item):
+    """The one setting still refused: a multi-device mesh. detect_interval
+    and co_batch run (tests/test_torch_tracking.py, test_torch_multicam.py)."""
     with pytest.raises(ValueError, match=item):
-        main([_config(tmp_path, **setting), *mode, "--device", "cpu"])
+        main([_config(tmp_path, **setting), "--images", str(tmp_path), "--device", "cpu"])
 
 
 def test_cli_refuses_the_record_job_and_needs_a_device(tmp_path, monkeypatch):

@@ -6,8 +6,8 @@ output_h265_dir, output_videos_dir, temp_directory_base, record_output_dir;
 plus the engine's settings under [TPU] (all optional): dtype, mesh_data,
 mosaic_level, max_detections, input_size. The section keeps that name, and
 every key, default and check, so that one config.ini parses the same here
-and in the JAX package; keys the port cannot honour yet are refused by
-``cli.main.build_engine`` and ``pipeline.video_pipeline.process_record_job``.
+and in the JAX package; the one key the port cannot honour yet (``mesh_data
+> 1``) is refused by ``cli.main.build_engine``.
 """
 
 from __future__ import annotations

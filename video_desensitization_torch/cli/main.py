@@ -13,9 +13,11 @@ video file or an image directory. Everything runs on one device: ``cuda``
 unless ``--device cpu`` is given. The config.ini is the JAX package's
 format. ``[TPU] engine`` picks the tiered pipeline (the default: host
 letterbox and mosaic, boxes-only readback), the fused engine, or ``auto``
-(a host-to-device copy probe picks one). The settings that need modules not
-ported yet (keyframe tracking, multi-device meshes, co-batched cameras) are
-refused with the ``ROADMAP.md`` item that ports them.
+(a host-to-device copy probe picks one); ``[TPU] detect_interval > 1``
+wraps it in keyframe tracking (``pipeline/tracking.py``) and ``[TPU]
+co_batch`` co-batches the record job's cameras (``pipeline/multicam.py``).
+The one setting that needs a module not ported yet, a multi-device mesh
+(``mesh_data > 1``), is refused with the ``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
@@ -104,12 +106,6 @@ def pick_engine(gib_s: float, transfer: str = "rgb") -> str:
 def _refuse_unported(cfg) -> None:
     """Raise for settings whose modules are not ported yet, naming the
     ROADMAP.md item and what to set instead."""
-    if cfg.detect_interval > 1:
-        raise ValueError(
-            f"[TPU] detect_interval = {cfg.detect_interval} needs keyframe "
-            "tracking, which is not ported yet (ROADMAP.md item 12); set "
-            "[TPU] detect_interval = 1"
-        )
     if cfg.mesh_data > 1:
         raise ValueError(
             f"[TPU] mesh_data = {cfg.mesh_data} needs the multi-device mesh, "
@@ -123,7 +119,9 @@ def build_engine(cfg, with_plates: bool = True, allow_random: bool = False, devi
     passes ``"cpu"``; with neither CUDA nor a device given it raises): the
     tiered pipeline, the fused engine, or for ``engine = auto`` the one
     ``pick_engine`` takes at the probed link rate (``cfg`` is not changed,
-    so each build probes anew)."""
+    so each build probes anew). With ``detect_interval > 1`` the engine is
+    wrapped in a ``TrackingEngine`` that detects in batches of
+    ``track_detect_batch``, or ``batch_size`` when that is 0."""
     from video_desensitization_torch.detect.face import Retinaface
     from video_desensitization_torch.detect.plate import PlateDetector
     from video_desensitization_torch.pipeline.engine import DesensitizationEngine
@@ -161,13 +159,28 @@ def build_engine(cfg, with_plates: bool = True, allow_random: bool = False, devi
             device=device,
         )
     if engine_mode == "tiered":
-        return TieredPipeline(
+        engine = TieredPipeline(
             face, plate, mosaic_level=cfg.mosaic_level, transfer=cfg.transfer,
             anonymizer=cfg.anonymizer,
         )
-    return DesensitizationEngine(
-        face, plate, mosaic_level=cfg.mosaic_level, anonymizer=cfg.anonymizer
-    )
+    else:
+        engine = DesensitizationEngine(
+            face, plate, mosaic_level=cfg.mosaic_level, anonymizer=cfg.anonymizer
+        )
+    if cfg.detect_interval > 1:
+        from video_desensitization_torch.pipeline.tracking import TrackingEngine
+
+        detect_batch = cfg.track_detect_batch or cfg.batch_size
+        get_logger("cli").info(
+            "detect_interval=%d: keyframe detection in batches of %d, gap "
+            "frames covered on the host (pipeline/tracking.py)",
+            cfg.detect_interval, detect_batch,
+        )
+        engine = TrackingEngine(
+            engine, interval=cfg.detect_interval, detect_batch=detect_batch,
+            coast=cfg.track_coast,
+        )
+    return engine
 
 
 def main(argv=None) -> int:

@@ -157,21 +157,27 @@ def i420_frame_hw(shape) -> tuple:
     return h, w
 
 
-def mosaic_i420_host_inplace(yuv: np.ndarray, boxes, level: int = DEFAULT_MOSAIC_LEVEL) -> np.ndarray:
-    """Host oracle for ``mosaic_i420_batch``: the cv2 mosaic per plane on
-    one (H*3/2, W) I420 image, full-resolution boxes on Y, halved boxes at
-    ``max(1, level // 2)`` on U and V. Mutates ``yuv``."""
-    # The planes are reshaped views; on a non-contiguous array numpy would
-    # copy and the writes would be lost.
+def i420_host_planes(yuv: np.ndarray):
+    """Views (Y (H, W), U (H/2, W/2), V (H/2, W/2)) of one (H*3/2, W) I420
+    image, cut at byte offsets (cv2's layout, any even H). The chroma
+    planes are reshaped views: on a non-contiguous array numpy would copy
+    and writes to them would be lost, so that raises."""
     if not yuv.flags["C_CONTIGUOUS"]:
-        raise ValueError("mosaic_i420_host_inplace needs a C-contiguous array")
+        raise ValueError("the I420 image must be a C-contiguous array")
     h15, w = yuv.shape
     h = (h15 * 2) // 3
     hw, q = h * w, (h // 2) * (w // 2)
     flat = yuv.reshape(-1)
-    mosaic_host_inplace(yuv[:h], boxes, level)
-    u = flat[hw : hw + q].reshape(h // 2, w // 2)
-    v = flat[hw + q :].reshape(h // 2, w // 2)
+    return (yuv[:h], flat[hw : hw + q].reshape(h // 2, w // 2),
+            flat[hw + q : hw + 2 * q].reshape(h // 2, w // 2))
+
+
+def mosaic_i420_host_inplace(yuv: np.ndarray, boxes, level: int = DEFAULT_MOSAIC_LEVEL) -> np.ndarray:
+    """Host oracle for ``mosaic_i420_batch``: the cv2 mosaic per plane on
+    one (H*3/2, W) I420 image, full-resolution boxes on Y, halved boxes at
+    ``max(1, level // 2)`` on U and V. Mutates ``yuv``."""
+    y, u, v = i420_host_planes(yuv)
+    mosaic_host_inplace(y, boxes, level)
     cb = [[x1 // 2, y1 // 2, (x2 + 1) // 2, (y2 + 1) // 2] for x1, y1, x2, y2 in boxes]
     clevel = max(1, level // 2)
     mosaic_host_inplace(u, cb, clevel)

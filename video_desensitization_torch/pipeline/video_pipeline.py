@@ -138,14 +138,10 @@ class RecordJobStats:
 
 def process_record_job(config: PipelineConfig, engine) -> RecordJobStats:
     """Full record job: unpack -> per-stream desensitize -> repack (the
-    reference's __main__ flow, combine_detect.py:786-990), one stream after
-    another. ``co_batch`` (the camera streams co-batched) needs the
-    multicam module, which is not ported yet: it is refused."""
-    if config.co_batch:
-        raise ValueError(
-            "[TPU] co_batch = true needs the multicam module, which is not "
-            "ported yet (ROADMAP.md item 13); set [TPU] co_batch = false"
-        )
+    reference's __main__ flow, combine_detect.py:786-990). The camera
+    streams run one after another, or with ``co_batch`` all at once
+    through shared device batches (``pipeline/multicam.py``), each camera
+    tracked on its own when ``detect_interval > 1``."""
     log = get_logger("record_job")
     stats = RecordJobStats()
     t0 = time.time()
@@ -158,6 +154,16 @@ def process_record_job(config: PipelineConfig, engine) -> RecordJobStats:
         if config.resume
         else None
     )
+
+    if config.co_batch:
+        _cobatched_streams(config, engine, hevc_dir, manifest, stats)
+        stats.record_path = write_allH265_record_all(
+            config.record_dir, config.output_videos_dir, config.record_output_dir
+        )
+        stats.wall_s = time.time() - t0
+        log.info("record job (co-batched) done: %d streams, %d frames, %.1fs",
+                 stats.videos_processed, stats.frames, stats.wall_s)
+        return stats
 
     for root, _dirs, files in os.walk(hevc_dir):
         for fname in sorted(files):
@@ -219,3 +225,54 @@ def process_record_job(config: PipelineConfig, engine) -> RecordJobStats:
         stats.wall_s,
     )
     return stats
+
+
+def _cobatched_streams(config, engine, hevc_dir, manifest, stats) -> None:
+    """The record job's streams through ``process_videos_cobatched``: the
+    non-video files are handled as in the sequential job, every video
+    stream becomes one camera (a stem seen twice gets ``_2``, ``_3``, ...),
+    and each camera's counts and manifest entry are added to ``stats``."""
+    from video_desensitization_torch.pipeline.multicam import process_videos_cobatched
+
+    log = get_logger("record_job")
+    jobs = {}
+    for root, _dirs, files in os.walk(hevc_dir):
+        for fname in sorted(files):
+            ext = os.path.splitext(fname)[1].lower().lstrip(".")
+            fpath = os.path.join(root, fname)
+            if ext == "mf4":
+                if process_mf4(fpath, config.output_videos_dir):
+                    stats.videos_copied += 1
+                continue
+            if ext not in config.video_formats:
+                if config.copy_unprocessed_videos and copy_unprocessed_video(
+                    fpath, config.output_videos_dir
+                ):
+                    stats.videos_copied += 1
+                continue
+            if manifest is not None and manifest.is_done(fpath):
+                stats.videos_processed += 1
+                continue
+            name, e = os.path.splitext(fname)
+            key, n = name, 2
+            while key in jobs:
+                key = f"{name}_{n}"
+                n += 1
+            jobs[key] = (fpath, os.path.join(config.output_videos_dir, f"{key}_processed{e}"))
+    cam_stats = process_videos_cobatched(
+        jobs, engine, batch_size=config.batch_size, fps=config.output_fps,
+        encode_kwargs=config.encode_kwargs, transport=config.transfer,
+        detect_interval=config.detect_interval, track_coast=config.track_coast,
+    )
+    for name, cs in cam_stats.items():
+        if cs.error:
+            log.error("camera %s failed (%s); output incomplete", name, cs.error)
+            stats.videos_failed += 1
+            continue
+        stats.videos_processed += 1
+        stats.frames += cs.frames
+        stats.faces += cs.faces
+        stats.plates += cs.plates
+        if manifest is not None:
+            manifest.mark(jobs[name][0], jobs[name][1], frames=cs.frames,
+                          faces=cs.faces, plates=cs.plates)
