@@ -64,7 +64,18 @@ Phases, each printing one line and asserting:
      .complete marker, /healthz and /status read while it runs, the
      journal line, the output's frames and 3 kernel calls; then
      cli.doctor.collect() on one line;
- 12. reference: the card against the CPU on the same weights in float32:
+ 12. train: RetinaFace training at full width (ResNet-50, 640, batch 32):
+     a synthetic labelled set of 1080p JPEGs with a few faces each, the
+     port's training CLI (cli.train) for 2 short epochs in bf16 with
+     checkpoints, a resume and the msgpack export; ms per step and
+     images/s on a resident batch in bf16 and float32 (median of 10
+     synchronised steps after 3 warm-up ones) with the peak device memory
+     of each and the model FLOPs of a step; the host ms per batch of
+     batch_iterator; one float32 step (batch 2, TF32 off) on the card
+     against the CPU from the same weights; 20 steps on one batch (the loss
+     falls); the export loaded into the port's Retinaface on the card; the
+     mosaic kernel launched 0 times;
+ 13. reference: the card against the CPU on the same weights in float32:
      both networks, then the rest of the engine's program (letterbox
      canvas, decode, NMS, inverse letterbox, box order);
 then a "kernels" JSON line, the nvidia-smi line, and the result line.
@@ -92,6 +103,8 @@ STREAM_REPEATS = 3
 TIMED_CALLS = 50
 TRACK_FRAMES, TRACK_INTERVAL, TRACK_WINDOWS = 64, 4, 3
 TRACK_TIMED_FRAMES = 256  # 8 keyframe batches at interval 4 and batch 8
+TRAIN_IMAGES, TRAIN_BATCH, TRAIN_INPUT = 64, 32, 640
+TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, OVERFIT_STEPS = 3, 10, 20
 REPO = Path(__file__).resolve().parent
 RECORD_FIXTURE = REPO / "tests" / "fixtures" / "torch_record_1080p.record"
 
@@ -1112,6 +1125,331 @@ def phase_serve(engine) -> dict:
     return {"launches": launches}
 
 
+def write_train_set(root: str, n: int) -> None:
+    """n 1080p JPEGs of smooth noise, each with 2-4 bright square "faces"
+    (60-300 px, every other one with 5 landmarks), and their label.txt."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    lines = []
+    for i in range(n):
+        img = cv2.resize(rng.integers(0, 256, (HEIGHT // 16, WIDTH // 16, 3), dtype=np.uint8),
+                         (WIDTH, HEIGHT))
+        lines.append(f"# im{i:03d}.jpg")
+        for j in range(int(rng.integers(2, 5))):
+            s = int(rng.integers(HEIGHT // 18, HEIGHT * 5 // 18))
+            x, y = int(rng.integers(0, WIDTH - s)), int(rng.integers(0, HEIGHT - s))
+            img[y:y + s, x:x + s] = rng.integers(180, 256, 3)
+            row = f"{x} {y} {s} {s}"
+            if j % 2 == 0:
+                pts = ((0.3, 0.35), (0.7, 0.35), (0.5, 0.55), (0.35, 0.75), (0.65, 0.75))
+                row += "".join(f" {x + a * s:.1f} {y + b * s:.1f} 0.0" for a, b in pts) + " 0.9"
+            lines.append(row)
+        cv2.imwrite(os.path.join(root, f"im{i:03d}.jpg"), img)
+    with open(os.path.join(root, "label.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def train_step_ms(state, step_fn, batch) -> float:
+    """Median ms of TRAIN_TIMED_STEPS synchronised steps on ``batch`` after
+    TRAIN_WARMUP_STEPS warm-up ones."""
+    import torch
+
+    for _ in range(TRAIN_WARMUP_STEPS):
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+TRAIN_KERNEL_CLASSES = (
+    ("conv", ("conv", "xmma", "implicit", "gemm", "cutlass", "cudnn", "sm90", "wgrad", "dgrad")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_")),
+    ("reduction", ("reduce",)),
+    ("sort", ("sort", "radix", "scan")),
+    ("copy", ("memcpy", "memset", "copy")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def train_step_profile(state, step_fn, batch, steps: int = 3) -> dict:
+    """torch.profiler over ``steps`` train steps: the device time a step
+    (the kernels' own times summed: one stream, so no overlap), CUDA
+    kernels a step, and the device time of each class of kernel by name
+    (TRAIN_KERNEL_CLASSES, first match; the rest "other")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_desensitization_torch.bench_util import device_time_us
+
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    classes = {name: 0.0 for name, _ in TRAIN_KERNEL_CLASSES}
+    classes["other"] = 0.0
+    kernels = 0
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != cuda:
+            continue
+        key = evt.key.lower()
+        kernels += evt.count
+        name = next((n for n, words in TRAIN_KERNEL_CLASSES if any(w in key for w in words)),
+                    "other")
+        classes[name] += device_time_us(evt) / 1e3 / steps
+    return {"device_ms": sum(classes.values()), "kernels": kernels / steps, "classes": classes}
+
+
+def data_stage_ms(labels, root, anchors, n: int = 8) -> dict:
+    """Median host ms per image of the data path's stages over n images:
+    JPEG decode (cv2.imread + BGR -> RGB), letterbox and mean subtraction,
+    and anchor matching on the card (TargetEncoder, one sync an image)."""
+    import cv2
+    import numpy as np
+
+    from video_desensitization_torch.ops.image import BGR_MEAN
+    from video_desensitization_torch.pipeline.throughput import letterbox_u8
+    from video_desensitization_torch.train.data import TargetEncoder, _letterbox_annotations
+
+    hw = (TRAIN_INPUT, TRAIN_INPUT)
+    encoder = TargetEncoder(anchors, device="cuda")
+    times = {"decode": [], "letterbox": [], "match": []}
+    for key in sorted(labels)[:n]:
+        t0 = time.perf_counter()
+        img = cv2.cvtColor(cv2.imread(os.path.join(root, key)), cv2.COLOR_BGR2RGB)
+        t1 = time.perf_counter()
+        letterbox_u8(img, hw).astype(np.float32) - np.asarray(BGR_MEAN, np.float32)
+        t2 = time.perf_counter()
+        encoder(_letterbox_annotations(labels[key], img.shape[:2], hw))
+        t3 = time.perf_counter()
+        for name, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+            times[name].append(dt * 1e3)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def fresh_train_state(device, warmup_steps: int = 0, seed: int = 0):
+    """ResNet-50 RetinaFace, random weights from ``seed``, under the CLI's
+    SGD (momentum 0.9, weight decay 5e-4) at its lr 1e-3 after
+    ``warmup_steps`` of linear warmup."""
+    lr = 1e-3
+    import torch
+
+    from video_desensitization_torch.models.common import load_weights
+    from video_desensitization_torch.models.configs import cfg_re50
+    from video_desensitization_torch.models.retinaface import RetinaFace
+    from video_desensitization_torch.train.data import multistep_lr
+    from video_desensitization_torch.train.step import create_train_state
+
+    model = RetinaFace(cfg_re50, mode="train")
+    load_weights(model, None, None, seed)
+    optimizer = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9, weight_decay=5e-4)
+    return create_train_state(model, optimizer, multistep_lr(lr, [], warmup_steps=warmup_steps),
+                              device=device)
+
+
+def phase_train(smi: str) -> dict:
+    """RetinaFace training on the card at full width; see the module
+    docstring. Prints a line for each part as it ends. Returns the mosaic
+    kernel's launch count in the phase (0)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from video_desensitization_torch.cli.train import parse_args, train
+    from video_desensitization_torch.detect.face import Retinaface
+    from video_desensitization_torch.models.configs import cfg_re50
+    from video_desensitization_torch.ops import cuda_mosaic
+    from video_desensitization_torch.ops.anchors import generate_anchors
+    from video_desensitization_torch.train.data import batch_iterator, load_retinaface_labels
+    from video_desensitization_torch.train.step import make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
+    hw = (TRAIN_INPUT, TRAIN_INPUT)
+    anchors = generate_anchors(hw, cfg_re50["min_sizes"], cfg_re50["steps"])
+    steps_per_epoch = TRAIN_IMAGES // TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the labelled set, (b) the CLI: one epoch with a checkpoint,
+        # then a resume to epoch 2 with the export
+        t0 = time.perf_counter()
+        write_train_set(tmp, TRAIN_IMAGES)
+        labels = load_retinaface_labels(os.path.join(tmp, "label.txt"))
+        set_s = time.perf_counter() - t0
+        export = os.path.join(tmp, "face.msgpack")
+        argv = ["--labels", os.path.join(tmp, "label.txt"), "--images", tmp,
+                "--backbone", "resnet50", "--input-size", str(TRAIN_INPUT),
+                "--batch-size", str(TRAIN_BATCH), "--compute-dtype", "bfloat16",
+                "--log-every", "1", "--ckpt-dir", os.path.join(tmp, "ck")]
+        t0 = time.perf_counter()
+        first = train(parse_args(argv + ["--epochs", "1"]))
+        state = train(parse_args(argv + ["--epochs", "2", "--export", export,
+                                         "--resume", os.path.join(tmp, "ck", "ep0001")]))
+        cli_s = time.perf_counter() - t0
+        check(first.step == steps_per_epoch and state.step == 2 * steps_per_epoch,
+              f"CLI steps {first.step}, {state.step}")
+        check(sorted(os.listdir(os.path.join(tmp, "ck"))) == ["ep0001", "ep0002"], "checkpoints")
+        check(os.path.getsize(export) > 0, "no export")
+        del first, state
+        print(f"phase train: {smi} | RetinaFace-ResNet50 {TRAIN_INPUT}x{TRAIN_INPUT}, batch "
+              f"{TRAIN_BATCH} | {TRAIN_IMAGES} 1080p JPEGs with "
+              f"{sum(len(v) for v in labels.values())} faces written in {set_s:.2f} s | the CLI, "
+              f"bf16, one epoch with a checkpoint then a resume to epoch 2 with the msgpack "
+              f"export: {2 * steps_per_epoch} steps in {cli_s:.2f} s (two model builds and "
+              f"inits included)", flush=True)
+
+        # (c) host ms per batch, then the step on a resident batch in bf16 and float32
+        t0 = time.perf_counter()
+        batches = list(batch_iterator(labels, tmp, hw, anchors, batch_size=TRAIN_BATCH,
+                                      shuffle=True, seed=0, device="cuda"))
+        host_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        check(len(batches) == steps_per_epoch, f"{len(batches)} batches")
+        batch = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
+        timing = {}
+        for name, dtype in (("bf16", torch.bfloat16), ("float32", torch.float32)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            st = fresh_train_state("cuda")
+            ms = train_step_ms(st, make_train_step(dtype), batch)
+            timing[name] = (ms, TRAIN_BATCH / ms * 1e3, torch.cuda.max_memory_allocated() / 2**30)
+            if dtype == torch.bfloat16:
+                with FlopCounterMode(display=False) as counter:
+                    make_train_step(dtype)(st, batch)
+                flops = counter.get_total_flops()
+                profiled = train_step_profile(st, make_train_step(dtype), batch)
+            del st
+        bound_ms = flops / 989e12 * 1e3  # dense bf16 peak, NVIDIA H100 SXM data sheet
+        print("phase train: resident batch (" + str(int((batch["labels"] != 0).sum()))
+              + " positive anchors), median of " + str(TRAIN_TIMED_STEPS) + " synchronised steps | "
+              + " | ".join(f"{n} {ms:.3f} ms/step, {ips:.2f} images/s, peak {gib:.2f} GiB"
+                           for n, (ms, ips, gib) in timing.items())
+              + f" (float32 convs in TF32, cuDNN's default) | model FLOPs a step "
+              f"{flops / 1e12:.3f} T: bf16 bound {bound_ms:.3f} ms, {bound_ms / timing['bf16'][0]:.1%} "
+              f"of the bf16 step | host batch_iterator {host_ms:.1f} ms a batch "
+              f"({len(batches)} batches); ms an image: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in data_stage_ms(labels, tmp, anchors).items()),
+              flush=True)
+        print("phase train: bf16 step under torch.profiler: " + (
+            f"{profiled['device_ms']:.3f} ms of device time in {profiled['kernels']:.0f} CUDA "
+            f"kernels a step ({profiled['device_ms'] / timing['bf16'][0]:.1%} of the step's wall "
+            "time) | " + ", ".join(f"{k} {v:.3f}" for k, v in profiled["classes"].items()) + " ms"
+            if profiled["kernels"] else "the profiler saw no device time"), flush=True)
+
+        # (d) one float32 step, card against CPU, TF32 off, same weights and batch
+        t0 = time.perf_counter()
+        err = card_vs_cpu_step({k: v[:2] for k, v in batches[0].items()})
+        print("phase train: one step at batch 2, TF32 off, from the same weights: loss card "
+              f"{err['card']:.7f}, CPU {err['cpu']:.7f}, CPU float64 network {err['f64']:.7f} | "
+              f"BN statistics card vs CPU max abs diff {err['stats_abs']:.3e} "
+              f"({err['stats_leaf']}) | parameter "
+              f"updates against the float64 one (norm over all parameters; median over "
+              f"tensors): card {err['card_update_err']:.3e} ({err['card_update_median']:.3e}), "
+              f"CPU float32 {err['cpu_update_err']:.3e} ({err['cpu_update_median']:.3e}) | "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # (e) overfit one batch
+        st = fresh_train_state("cuda", warmup_steps=5, seed=1)
+        step_fn = make_train_step(torch.bfloat16)
+        losses = [float(step_fn(st, batch)[1]["loss"]) for _ in range(OVERFIT_STEPS)]
+        check(all(np.isfinite(losses)), f"losses {losses}")
+        check(losses[-1] < losses[0], f"the loss did not fall over {OVERFIT_STEPS} steps: {losses}")
+        del st
+
+        # (f) the export in the port's Retinaface on the card
+        face = Retinaface(model_path=export, backbone="resnet50", input_shape=[*hw, 3],
+                          device="cuda")
+        frame = np.random.default_rng(8).integers(0, 256, (1, HEIGHT, WIDTH, 3), dtype=np.uint8)
+        _, dets_px, keep = face.detect_padded(frame)
+        check(dets_px.shape == (1, face.max_detections, 15) and bool(torch.isfinite(dets_px).all()),
+              "the export's detections")
+        del face
+    launches = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+    check(launches == 0, f"the mosaic kernel was launched {launches}x while training")
+    print(f"phase train: overfit one batch in bf16: loss {losses[0]:.4f} -> {losses[-1]:.4f} in "
+          f"{OVERFIT_STEPS} steps | the export in Retinaface on the card: detect_padded on a "
+          f"1080p frame, {int(keep.sum())} boxes kept | mosaic launches {launches}", flush=True)
+    return {"launches": launches}
+
+
+def card_vs_cpu_step(batch) -> dict:
+    """One train step (batch 2, TF32 off) from the same weights (seed 3) in
+    float32 on the card and on the CPU, and with a float64 network on the
+    CPU (the loss in float32, as the trainer takes it) as the reference.
+
+    Checks: the card's and the CPU's losses within 1e-5 of each other; the
+    BN statistics after the step within 1e-5 + 1e-4 relative (they depend on
+    the forward only); and the parameters' updates (the change the step made),
+    over all parameters, no farther from the float64 update than twice the
+    CPU float32 update is. At random init a float32 gradient of this
+    network is itself about 1e-2 off the float64 one (median over the
+    tensors, on the CPU at 320 x 320), though the loss agrees to 1e-6, so a
+    fixed tolerance between two float32 steps would say nothing."""
+    import numpy as np
+    import torch
+
+    from video_desensitization_torch.models.convert import to_jax_variables
+    from video_desensitization_torch.train.step import make_train_step
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        for name, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                    ("f64", "cpu", torch.float64)):
+            st = fresh_train_state(device, seed=3)
+            st.model.to(dtype)
+            before = to_jax_variables(st.model.state_dict())
+            b = {k: v.astype(np.float64) if dtype == torch.float64 and v.dtype == np.float32 else v
+                 for k, v in batch.items()}
+            st, metrics = make_train_step()(st, b)
+            runs[name] = (float(metrics["loss"]), before, to_jax_variables(st.model.state_dict()))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = {name: loss for name, (loss, _, _) in runs.items()}
+    check(np.isfinite(out["card"]) and abs(out["card"] - out["cpu"]) <= 1e-5 * abs(out["cpu"]),
+          f"step loss on the card {out['card']} != on the CPU {out['cpu']}")
+    stats = [(name, a, b) for (name, a), (_, b) in zip(_leaves(runs["card"][2]["batch_stats"]),
+                                                       _leaves(runs["cpu"][2]["batch_stats"]))]
+    out["stats_abs"], out["stats_leaf"] = max((float(np.abs(a - b).max()), n) for n, a, b in stats)
+    excess = max(float((np.abs(a - b) - 1e-4 * np.abs(b)).max()) for _, a, b in stats)
+    check(excess <= 1e-5, f"BN statistics: card != CPU beyond 1e-5 + 1e-4 relative "
+                          f"(max abs diff {out['stats_abs']:.3e} at {out['stats_leaf']})")
+    before = dict(_leaves(runs["f64"][1]["params"]))
+    update = {name: {k: v.astype(np.float64) - before[k] for k, v in _leaves(r[2]["params"])}
+              for name, r in runs.items()}
+    ref = update["f64"]
+    for name in ("card", "cpu"):
+        diff = sum(float(np.sum((update[name][k] - ref[k]) ** 2)) for k in ref)
+        out[f"{name}_update_err"] = np.sqrt(diff / sum(float(np.sum(v ** 2)) for v in ref.values()))
+        per_tensor = [float(np.linalg.norm(update[name][k] - v) / np.linalg.norm(v))
+                      for k, v in ref.items() if np.any(v)]
+        out[f"{name}_update_median"] = float(np.median(per_tensor))
+    check(out["card_update_err"] <= 2 * out["cpu_update_err"],
+          f"the card's update is {out['card_update_err']:.3e} from the float64 one, the CPU's "
+          f"{out['cpu_update_err']:.3e}")
+    return out
+
+
+def _leaves(tree, prefix: str = ""):
+    """(path, array) of each leaf of a nested dict, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
 def _recording(net, calls):
     """``net``, keeping a CPU copy of each call's input and outputs."""
     def run(x):
@@ -1220,6 +1558,7 @@ def main() -> int:
     serve = phase_serve(main_engine)
     del main_engine
     phase_stream()
+    trained = phase_train(smi)
     phase_reference()
     kernel = {
         "name": "mosaic",
@@ -1244,6 +1583,7 @@ def main() -> int:
         "tracked_launches": tracked["launches"],
         "multicam_launches": multicam["launches"],
         "serve_launches": serve["launches"],
+        "train_launches": trained["launches"],
     }
     print(json.dumps({"kernels": [kernel]}))
     print(smi)

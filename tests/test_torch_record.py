@@ -398,22 +398,59 @@ def _decode_payloads(messages, path):
         return [np.array(f) for f in dec]
 
 
+def _recording_encoder(encoder_class, written):
+    """``encoder_class`` that also keeps a copy of every frame it is handed,
+    with how it was handed (under the output file's name), and then encodes
+    it as before."""
+
+    class Recording(encoder_class):
+        def __init__(self, path, *args, **kwargs):
+            super().__init__(path, *args, **kwargs)
+            self.frames = written.setdefault(os.path.basename(path), [])
+
+        def write(self, frame):
+            self.frames.append(("rgb", np.array(frame)))
+            super().write(frame)
+
+        def write_i420(self, frame):
+            self.frames.append(("i420", np.array(frame)))
+            super().write_i420(frame)
+
+    return Recording
+
+
 @pytest.mark.parametrize("kind", ["tiered", "fused"])
-def test_record_job_matches_jax(tmp_path, detectors, job_record, kind):
+def test_record_job_matches_jax(tmp_path, detectors, job_record, monkeypatch, kind):
     """process_record_job in both packages on the same record and weights:
-    the same channels, per-topic message counts after gating, times and
-    sequence numbers; the chatter byte for byte; the camera payloads decode
-    to bitwise-equal frames."""
+    each camera's encoder is handed bitwise the same frames in the same
+    form; the same channels, per-topic message counts after gating, times
+    and sequence numbers; the chatter byte for byte; every camera payload
+    decodes to its 8 frames. (The HEVC bytes themselves are not compared:
+    x265's frame-threaded rate control is not deterministic under load.)"""
+    from video_desensitization_torch.pipeline import streaming
+    from video_desensitization_tpu.pipeline import streaming as jax_streaming
+
     jface, jplate, face, plate = detectors
     if kind == "tiered":
         engine, jax_engine = TieredPipeline(face, plate), JaxTiered(jface, jplate)
     else:
         engine, jax_engine = DesensitizationEngine(face, plate), JaxEngine(jface, jplate)
+    handed = {"mine": {}, "theirs": {}}
+    monkeypatch.setattr(streaming, "VideoEncoder",
+                        _recording_encoder(streaming.VideoEncoder, handed["mine"]))
+    monkeypatch.setattr(jax_streaming, "VideoEncoder",
+                        _recording_encoder(jax_streaming.VideoEncoder, handed["theirs"]))
     mine = process_record_job(load_config(_job_config(tmp_path, "mine", job_record)), engine)
     theirs = jax_record_job(jax_load_config(_job_config(tmp_path, "theirs", job_record)), jax_engine)
     assert (mine.videos_processed, mine.videos_failed) == (2, 0)
     assert dataclasses.astuple(mine)[:6] == dataclasses.astuple(theirs)[:6]
     assert mine.faces + mine.plates > 0
+    assert sorted(handed["mine"]) == sorted(handed["theirs"]) and len(handed["mine"]) == 2
+    for name, frames in handed["mine"].items():
+        assert len(frames) == len(handed["theirs"][name]) == 8
+        for (k1, a), (k2, b) in zip(frames, handed["theirs"][name]):
+            assert k1 == k2
+            np.testing.assert_array_equal(a, b)
     a, b = RecordReader(mine.record_path), JaxRecordReader(theirs.record_path)
     assert set(a.channels) == set(b.channels) == {*CAMERA_TOPICS[:2], CHATTER}
     assert a.message_count(CHATTER) == 10
@@ -426,9 +463,7 @@ def test_record_job_matches_jax(tmp_path, detectors, job_record, kind):
         assert ma[0][1].header.sequence_num == (2 if k == 0 else 0)
         fa = _decode_payloads(ma, str(tmp_path / f"a{k}.h265"))
         fb = _decode_payloads(mb, str(tmp_path / f"b{k}.h265"))
-        assert len(fa) == len(fb) == 8
-        for x, y in zip(fa, fb):
-            np.testing.assert_array_equal(x, y)
+        assert [f.shape for f in fa] == [f.shape for f in fb] == [(H, W, 3)] * 8
 
 
 def test_cli_record_job_default_engine(tmp_path, job_record):

@@ -11,6 +11,7 @@ into the reference's per-image box lists at the API boundary.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -117,3 +118,30 @@ class Retinaface:
             for row, i in enumerate(idxs):
                 outputs[i] = (images[i], dets_px[row][keep[row]][:, :4].tolist())
         return outputs
+
+    def get_FPS(self, image: np.ndarray, test_interval: int = 100) -> float:
+        """Reference-parity microbenchmark: mean seconds per detect call on
+        one image, 10 warm-up calls then ``test_interval`` timed ones, the
+        device synchronised before and after the timed loop."""
+        batch = np.asarray(image, np.uint8)[None]
+        frames = torch.as_tensor(batch).to(self.device)
+        shapes = torch.tensor([batch.shape[1:3]], dtype=torch.float32, device=self.device)
+        for _ in range(10):
+            self._detect_program(frames, shapes)
+        _synchronize(self.device)
+        t1 = time.time()
+        for _ in range(test_interval):
+            self._detect_program(frames, shapes)
+        _synchronize(self.device)
+        return (time.time() - t1) / test_interval
+
+    def get_map_txt(self, image: np.ndarray) -> np.ndarray:
+        """Single-image detections for mAP evaluation: (M, 15) rows in
+        pixels, the landmarks scaled too."""
+        _, dets_px, keep = self.detect_padded(np.asarray(image, np.uint8)[None])
+        return dets_px[0][keep[0]].cpu().numpy()
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

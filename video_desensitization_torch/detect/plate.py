@@ -121,6 +121,12 @@ class PlateDetector:
         frames = torch.as_tensor(np.ascontiguousarray(frames_u8)).to(self.device)
         return self._detect_program(frames, shapes)
 
+    def get_map_txt(self, image: np.ndarray) -> np.ndarray:
+        """Single-image detections for mAP evaluation: (M, 6) rows
+        [x1, y1, x2, y2, score, cls] in pixels."""
+        dets, keep = self.detect_padded(np.asarray(image, np.uint8)[None])
+        return dets[0][keep[0]].cpu().numpy()
+
     def __call__(self, images, verbose: bool = False, conf: Optional[float] = None):
         """Reference-parity callable: list of RGB uint8 images -> list of
         (image, boxes) tuples; ``conf`` raises the score threshold."""

@@ -1,4 +1,5 @@
-"""Shared conv building blocks and explicit-generator weight init.
+"""Shared conv building blocks, batch norm that trains as Flax's does, and
+explicit-generator weight init.
 
 ``ConvBN`` is a ``Sequential`` so its parameters sit under the indices the
 reference checkpoints use (``0`` conv, ``1`` BN, ``2`` activation).
@@ -9,9 +10,40 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from video_desensitization_torch.models.convert import load_torch_checkpoint
+from video_desensitization_torch.models.convert import (
+    from_jax_variables,
+    load_torch_checkpoint,
+    load_variables,
+)
+
+BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode update is Flax ``BatchNorm``'s.
+
+    Eval mode is ``nn.BatchNorm2d``'s own. In train mode one
+    ``F.batch_norm`` normalizes by the batch statistics (computed in float32
+    whatever the input's dtype) and updates the running statistics with
+    momentum 0.9; it takes the unbiased variance ``n/(n-1) * var`` into
+    ``running_var``, and the update is then rescaled to Flax's biased
+    ``var`` (``n`` = elements per channel)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        # a copy: autograd keeps the one it was given, which must not change
+        var = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                           True, 1.0 - BN_MOMENTUM, self.eps)
+        with torch.no_grad():
+            # var - 0.9 * running_var is 0.1 * the unbiased variance
+            self.running_var.copy_(var - (var - BN_MOMENTUM * self.running_var) / n)
+        return out
 
 
 class ConvBN(nn.Sequential):
@@ -23,7 +55,7 @@ class ConvBN(nn.Sequential):
     def __init__(self, in_ch, out_ch, kernel=3, stride=1, pad=1, groups=1, leaky=0.0):
         layers = [
             nn.Conv2d(in_ch, out_ch, kernel, stride, pad, groups=groups, bias=False),
-            nn.BatchNorm2d(out_ch, eps=1e-5),
+            BatchNorm2d(out_ch, eps=1e-5),
         ]
         if leaky >= 0.0:
             layers.append(nn.LeakyReLU(leaky) if leaky > 0.0 else nn.ReLU())
@@ -65,11 +97,15 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def load_weights(net: nn.Module, state_dict, model_path, seed: int) -> None:
-    """A given state_dict, else a reference ``.pth``/``.pt`` checkpoint at
-    ``model_path``, else random weights from
+    """A given state_dict, else the checkpoint at ``model_path`` (a reference
+    ``.pth``/``.pt`` state_dict, any other path the JAX package's msgpack
+    variables, as its detectors read them), else random weights from
     ``torch.Generator().manual_seed(seed)``."""
     if state_dict is None and model_path is not None:
-        state_dict = load_torch_checkpoint(model_path)
+        if str(model_path).endswith((".pth", ".pt")):
+            state_dict = load_torch_checkpoint(model_path)
+        else:
+            state_dict = from_jax_variables(load_variables(model_path))
     if state_dict is None:
         init_weights(net, torch.Generator().manual_seed(seed))
     else:

@@ -14,7 +14,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from video_desensitization_torch.models.common import ConvBN
+from video_desensitization_torch.models.common import BatchNorm2d, ConvBN
 
 
 class DepthwiseSeparable(nn.Sequential):
@@ -23,10 +23,10 @@ class DepthwiseSeparable(nn.Sequential):
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1, leaky: float = 0.1):
         super().__init__(
             nn.Conv2d(in_ch, in_ch, 3, stride, 1, groups=in_ch, bias=False),
-            nn.BatchNorm2d(in_ch),
+            BatchNorm2d(in_ch),
             nn.LeakyReLU(leaky),
             nn.Conv2d(in_ch, out_ch, 1, 1, 0, bias=False),
-            nn.BatchNorm2d(out_ch),
+            BatchNorm2d(out_ch),
             nn.LeakyReLU(leaky),
         )
 

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from video_desensitization_torch.models.common import BatchNorm2d
+
 BOTTLENECK_COUNTS = {"resnet50": (3, 4, 6, 3)}
 
 
@@ -23,15 +25,15 @@ class Bottleneck(nn.Module):
     def __init__(self, in_ch: int, width: int, stride: int = 1, downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, width * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(width * 4)
+        self.bn3 = BatchNorm2d(width * 4)
         self.downsample = (
             nn.Sequential(
                 nn.Conv2d(in_ch, width * 4, 1, stride, bias=False),
-                nn.BatchNorm2d(width * 4),
+                BatchNorm2d(width * 4),
             )
             if downsample
             else None
@@ -51,7 +53,7 @@ class ResNet50Features(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         # MaxPool2d pads with -inf, like the reference.
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         in_ch = 64
