@@ -78,6 +78,24 @@ Phases, each printing one line and asserting:
  13. reference: the card against the CPU on the same weights in float32:
      both networks, then the rest of the engine's program (letterbox
      canvas, decode, NMS, inverse letterbox, box order);
+ 14. mesh: (a) after phase serve, the fused engine on make_mesh() over
+     every card (1x1 on a machine with one) beside the single-device
+     engine on the same RGB and I420 batches: frames bitwise equal, the
+     same boxes kept, mosaic calls = cards x batches (RGB) and 2 x cards x
+     batches (I420), frames/s of both; then, after phase train, two
+     processes on cuda:0 over gloo (NCCL takes no two ranks on one card):
+     (b) one float32 step (batch 2, TF32 off) at data 2 held against the
+     single-process step of phase train (losses within 1e-5, BN statistics
+     within 1e-5 + 1e-4 relative, the update no farther from the float64
+     one than twice the single-process update); (c) the full-width bf16
+     step at data 2 (batch 32, 16 a rank) timed beside phase train's
+     (gloo stages its all-reduces through the host: not NVLink); (d) the
+     step of (b) at model 2 (the >= 256-channel kernels split), held the
+     same way; after MESH_EQUAL_STEPS steps of each every rank holds the
+     same replicated parameters bit for bit. On a machine with several
+     cards the trainer runs one process a card over NCCL instead, at data
+     2 x model 2 (4 cards) or data 2 x model cards/2, and (c) at data =
+     every card;
 then a "kernels" JSON line, the nvidia-smi line, and the result line.
 Exits non-zero without CUDA, outside the repository, or on any failure.
 """
@@ -105,6 +123,10 @@ TRACK_FRAMES, TRACK_INTERVAL, TRACK_WINDOWS = 64, 4, 3
 TRACK_TIMED_FRAMES = 256  # 8 keyframe batches at interval 4 and batch 8
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_INPUT = 64, 32, 640
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, OVERFIT_STEPS = 3, 10, 20
+MESH_BATCHES = 3  # batches of each form in phase mesh, the first WARMUP_BATCHES run twice
+MESH_WARMUP_STEPS, MESH_TIMED_STEPS = 2, 5  # a mesh step over gloo on one card takes ~1 s
+MESH_RANK_TIMEOUT_S = 300
+MESH_EQUAL_STEPS = 3  # float32 steps after which every rank's replicated parameters must agree
 REPO = Path(__file__).resolve().parent
 RECORD_FIXTURE = REPO / "tests" / "fixtures" / "torch_record_1080p.record"
 
@@ -1151,16 +1173,17 @@ def write_train_set(root: str, n: int) -> None:
         f.write("\n".join(lines) + "\n")
 
 
-def train_step_ms(state, step_fn, batch) -> float:
-    """Median ms of TRAIN_TIMED_STEPS synchronised steps on ``batch`` after
-    TRAIN_WARMUP_STEPS warm-up ones."""
+def train_step_ms(state, step_fn, batch, warmup: int = TRAIN_WARMUP_STEPS,
+                  timed: int = TRAIN_TIMED_STEPS) -> float:
+    """Median ms of ``timed`` synchronised steps on ``batch`` after
+    ``warmup`` warm-up ones."""
     import torch
 
-    for _ in range(TRAIN_WARMUP_STEPS):
+    for _ in range(warmup):
         step_fn(state, batch)
     torch.cuda.synchronize()
     times = []
-    for _ in range(TRAIN_TIMED_STEPS):
+    for _ in range(timed):
         t0 = time.perf_counter()
         step_fn(state, batch)
         torch.cuda.synchronize()
@@ -1169,6 +1192,7 @@ def train_step_ms(state, step_fn, batch) -> float:
 
 
 TRAIN_KERNEL_CLASSES = (
+    ("collective", ("nccl",)),
     ("conv", ("conv", "xmma", "implicit", "gemm", "cutlass", "cudnn", "sm90", "wgrad", "dgrad")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_")),
     ("reduction", ("reduce",)),
@@ -1180,7 +1204,8 @@ TRAIN_KERNEL_CLASSES = (
 
 def train_step_profile(state, step_fn, batch, steps: int = 3) -> dict:
     """torch.profiler over ``steps`` train steps: the device time a step
-    (the kernels' own times summed: one stream, so no overlap), CUDA
+    (the kernels' own times summed: one stream, so no overlap, but for
+    NCCL's collectives on a mesh, which run on a stream of their own), CUDA
     kernels a step, and the device time of each class of kernel by name
     (TRAIN_KERNEL_CLASSES, first match; the rest "other")."""
     import torch
@@ -1236,24 +1261,27 @@ def data_stage_ms(labels, root, anchors, n: int = 8) -> dict:
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def fresh_train_state(device, warmup_steps: int = 0, seed: int = 0):
+def fresh_train_state(device, warmup_steps: int = 0, seed: int = 0, mesh=None):
     """ResNet-50 RetinaFace, random weights from ``seed``, under the CLI's
     SGD (momentum 0.9, weight decay 5e-4) at its lr 1e-3 after
-    ``warmup_steps`` of linear warmup."""
+    ``warmup_steps`` of linear warmup; on ``mesh``, this rank's layout."""
     lr = 1e-3
     import torch
 
     from video_desensitization_torch.models.common import load_weights
     from video_desensitization_torch.models.configs import cfg_re50
     from video_desensitization_torch.models.retinaface import RetinaFace
+    from video_desensitization_torch.parallel.tensor import shard_model
     from video_desensitization_torch.train.data import multistep_lr
     from video_desensitization_torch.train.step import create_train_state
 
     model = RetinaFace(cfg_re50, mode="train")
     load_weights(model, None, None, seed)
+    if mesh is not None:
+        shard_model(model, mesh)
     optimizer = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9, weight_decay=5e-4)
     return create_train_state(model, optimizer, multistep_lr(lr, [], warmup_steps=warmup_steps),
-                              device=device)
+                              device=device, mesh=mesh)
 
 
 def phase_train(smi: str) -> dict:
@@ -1379,7 +1407,7 @@ def phase_train(smi: str) -> dict:
     print(f"phase train: overfit one batch in bf16: loss {losses[0]:.4f} -> {losses[-1]:.4f} in "
           f"{OVERFIT_STEPS} steps | the export in Retinaface on the card: detect_padded on a "
           f"1080p frame, {int(keep.sum())} boxes kept | mosaic launches {launches}", flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "batch": batches[0], "bf16_ms": timing["bf16"][0], "step": err}
 
 
 def card_vs_cpu_step(batch) -> dict:
@@ -1438,7 +1466,31 @@ def card_vs_cpu_step(batch) -> dict:
     check(out["card_update_err"] <= 2 * out["cpu_update_err"],
           f"the card's update is {out['card_update_err']:.3e} from the float64 one, the CPU's "
           f"{out['cpu_update_err']:.3e}")
+    out["runs"] = runs
     return out
+
+
+def update_error(run, ref) -> float:
+    """How far the update of ``run`` (loss, before, after) is from the
+    update of ``ref``: the norm over all parameters, relative to ref's."""
+    import numpy as np
+
+    before = dict(_leaves(ref[1]["params"]))
+    ref_update = {k: v.astype(np.float64) - before[k] for k, v in _leaves(ref[2]["params"])}
+    diff = sum(float(np.sum((v.astype(np.float64) - before[k] - ref_update[k]) ** 2))
+               for k, v in _leaves(run[2]["params"]))
+    return float(np.sqrt(diff / sum(float(np.sum(u ** 2)) for u in ref_update.values())))
+
+
+def stats_excess(run, ref):
+    """(max abs difference, its leaf, the most any BN statistic exceeds
+    1e-4 relative of ``ref``'s) between two runs' statistics after the step."""
+    import numpy as np
+
+    pairs = [(n, a, b) for (n, a), (_, b) in zip(_leaves(run[2]["batch_stats"]),
+                                                 _leaves(ref[2]["batch_stats"]))]
+    worst, leaf = max((float(np.abs(a - b).max()), n) for n, a, b in pairs)
+    return worst, leaf, max(float((np.abs(a - b) - 1e-4 * np.abs(b)).max()) for _, a, b in pairs)
 
 
 def _leaves(tree, prefix: str = ""):
@@ -1529,6 +1581,321 @@ def phase_reference() -> None:
     )
 
 
+def _joined(results, b):
+    """The shards' EngineResults joined in order and cut to ``b`` frames."""
+    import numpy as np
+
+    return (np.concatenate([r.frames for r in results])[:b],
+            [x for r in results for x in r.face_boxes][:b],
+            [x for r in results for x in r.plate_boxes][:b])
+
+
+def _box_diff(a_lists, b_lists):
+    """(frames whose kept boxes differ in number, max abs difference of the
+    boxes of the other frames) between two per-frame box lists."""
+    import numpy as np
+
+    count, worst = 0, 0.0
+    for a, b in zip(a_lists, b_lists):
+        a, b = (np.asarray(x, np.float64).reshape(-1, 4) for x in (a, b))
+        if a.shape != b.shape:
+            count += 1
+        elif a.size:
+            worst = max(worst, float(np.abs(a - b).max()))
+    return count, worst
+
+
+def mesh_stage_ms(engine, batches, yuv: bool) -> str:
+    """Where a mesh batch's host time goes: each shard's ``dispatch_batch``
+    (copies, the program with its NMS syncs, the pinned outputs; the
+    shards in turn from the calling thread) and ``finalize_batch`` (the
+    wait for its card), by the host clock, ms a shard, medians over
+    ``batches``."""
+    from video_desensitization_torch.pipeline.engine import DesensitizationEngine
+
+    times = {"dispatch": [], "finalize": []}
+    originals = {name: getattr(DesensitizationEngine, f"{name}_batch") for name in times}
+
+    def timed(name):
+        def call(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return originals[name](self, *args, **kwargs)
+            finally:
+                if self.mesh is None:  # a shard's engine, not the mesh's
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+        return call
+
+    process = engine.process_batch_yuv if yuv else engine.process_batch
+    try:
+        for name in times:
+            setattr(DesensitizationEngine, f"{name}_batch", timed(name))
+        for frames in batches:
+            process(frames)
+    finally:
+        for name, fn in originals.items():
+            setattr(DesensitizationEngine, f"{name}_batch", fn)
+    return ", ".join(f"{name} {statistics.median(v):.3f} ms a shard" for name, v in times.items())
+
+
+def phase_mesh_engine(engine) -> dict:
+    """Phase mesh (a): the fused engine on make_mesh() over every card
+    beside ``engine`` (the single-device engine) on the same batches.
+
+    Each card runs its shard of the batch; the single-device engine on the
+    same shards (the whole batch on one card) gives the same frames and
+    boxes bit for bit. On several cards the single engine on the whole
+    batch is compared too, for the record: a bf16 network at another batch
+    size may take other cuDNN algorithms and round differently."""
+    import numpy as np
+    import torch
+
+    from video_desensitization_torch.bench_util import engine_fps
+    from video_desensitization_torch.ops import cuda_mosaic
+    from video_desensitization_torch.parallel.mesh import make_mesh, pad_batch_to_devices
+    from video_desensitization_torch.pipeline.engine import DesensitizationEngine
+
+    mesh = make_mesh()
+    devices = mesh.size
+    sharded = DesensitizationEngine(engine.face, engine.plate, mosaic_level=engine.mosaic_level,
+                                    mesh=mesh)
+    rng = np.random.default_rng(9)
+    parts, out = [], {"devices": devices, "launches": 0}
+    for form, shape, calls in (("RGB", (BATCH, HEIGHT, WIDTH, 3), 1),
+                               ("I420", (BATCH, HEIGHT * 3 // 2, WIDTH), 2)):
+        yuv = form == "I420"
+        process = engine.process_batch_yuv if yuv else engine.process_batch
+        batches = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(MESH_BATCHES)]
+        solo_fps, whole = engine_fps(engine, batches, warmup=WARMUP_BATCHES, yuv=yuv)
+        cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
+        fps, got = engine_fps(sharded, batches, warmup=WARMUP_BATCHES, yuv=yuv)
+        torch.cuda.synchronize()
+        launches = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+        expected = calls * devices * (WARMUP_BATCHES + len(batches))
+        check(launches == expected,
+              f"mesh {form}: mosaic calls {launches}, expected {expected} ({calls} x {devices} "
+              f"cards x {WARMUP_BATCHES + len(batches)} batches)")
+        whole_diff = [0, 0.0, 0]
+        for frames, g, w in zip(batches, got, whole):
+            if devices == 1:
+                want = (w.frames, w.face_boxes, w.plate_boxes)
+            else:
+                padded, _ = pad_batch_to_devices(frames, devices)
+                per = len(padded) // devices
+                want = _joined([process(padded[i * per:(i + 1) * per]) for i in range(devices)],
+                               len(frames))
+            check(np.array_equal(g.frames, want[0]), f"mesh {form}: frames != the single "
+                                                     f"device's on the same shards")
+            check(g.face_boxes == want[1] and g.plate_boxes == want[2],
+                  f"mesh {form}: kept boxes != the single device's on the same shards")
+            count, worst = _box_diff(g.face_boxes + g.plate_boxes, w.face_boxes + w.plate_boxes)
+            whole_diff = [whole_diff[0] + count, max(whole_diff[1], worst),
+                          whole_diff[2] + int((g.frames != w.frames).any(axis=tuple(
+                              range(1, g.frames.ndim))).sum())]
+        out["launches"] += launches
+        out[f"{form}_fps"], out[f"{form}_solo_fps"] = fps, solo_fps
+        if devices > 1:  # where a mesh batch's time goes
+            shard = batches[0][:len(batches[0]) // devices]
+            dropped, _ = engine_fps(sharded, batches, warmup=0, keep=False, yuv=yuv)
+            parts.append(f"{form} one shard ({len(shard)} frames) alone on one card "
+                         f"{host_ms(lambda: process(shard)):.3f} ms, a batch on the mesh "
+                         f"{len(batches[0]) / fps * 1e3:.3f} ms (results dropped "
+                         f"{len(batches[0]) / dropped * 1e3:.3f} ms); in it "
+                         f"{mesh_stage_ms(sharded, batches, yuv)}")
+        parts.append(f"{form} {fps:.2f} frames/s (single device {solo_fps:.2f}), mosaic calls "
+                     f"{launches} = {calls} x {devices} x {len(batches) + WARMUP_BATCHES} batches, "
+                     f"frames and boxes equal to the single device's on the same shards; against "
+                     f"it on whole batches: {whole_diff[2]} frames differ, {whole_diff[0]} keep "
+                     f"another number of boxes, the rest's boxes within {whole_diff[1]:.2e} px")
+    print(f"phase mesh: make_mesh() over {devices} card(s) {dict(mesh.shape)}, resnet50+yolov8n "
+          f"640 bf16, {BATCH}x{HEIGHT}x{WIDTH} batches, results held | " + " | ".join(parts),
+          flush=True)
+    return out
+
+
+def _mesh_step(mesh, batch, device):
+    """(loss, variables before, variables after) of one float32 step on
+    ``mesh`` from seed 3's weights, this rank's on ``device``, the split
+    kernels gathered whole; then MESH_EQUAL_STEPS - 1 more steps and the
+    number of parameter elements in which some rank differs from the
+    others (``replica_mismatch``)."""
+    import copy
+
+    from video_desensitization_torch.models.convert import to_jax_variables
+    from video_desensitization_torch.parallel.tensor import full_state_dict
+    from video_desensitization_torch.train.step import make_train_step
+
+    st = fresh_train_state(device, seed=3, mesh=mesh)
+    before = to_jax_variables(full_state_dict(st.model))
+    step = make_train_step(mesh=mesh)
+    st, metrics = step(st, batch)
+    after = copy.deepcopy(to_jax_variables(full_state_dict(st.model)))  # the steps go on in place
+    for _ in range(MESH_EQUAL_STEPS - 1):
+        st, _ = step(st, batch)
+    return float(metrics["loss"]), before, after, replica_mismatch(st.model, mesh)
+
+
+def replica_mismatch(model, mesh) -> int:
+    """Elements of ``model``'s parameters in which some rank differs from
+    rank 0 of its group: the replicated ones over the whole mesh, each
+    split kernel's slice over its data group (all-gathers)."""
+    import torch
+    import torch.distributed as dist
+
+    from video_desensitization_torch.parallel.tensor import split_param_owner
+
+    split = split_param_owner(model)
+    params = list(model.parameters())
+    count = 0
+    for group, size, chosen in ((None, mesh.size, [p for p in params if id(p) not in split]),
+                                (mesh.group("data"), mesh.shape["data"],
+                                 [p for p in params if id(p) in split])):
+        if not chosen or size == 1:
+            continue
+        flat = torch.cat([p.detach().reshape(-1) for p in chosen])
+        parts = [torch.empty_like(flat) for _ in range(size)]
+        dist.all_gather(parts, flat, group=group)
+        count += sum(int((part != parts[0]).sum()) for part in parts[1:])
+    return count
+
+
+def mesh_rank(rank: int, address: str, devices, checks, batch_path: str, out_path: str) -> None:
+    """One rank of phase mesh's processes, on ``devices[rank]`` (gloo where
+    a card is repeated, NCCL otherwise): one float32 step (batch 2, TF32
+    off) on each (name, data, model) mesh of ``checks``, then the bf16 step
+    at data = every rank on the whole batch, timed, and the gradients'
+    all-reduce alone. Rank 0 writes the results."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from video_desensitization_torch.parallel.mesh import distributed_init, make_mesh
+    from video_desensitization_torch.train.step import make_train_step
+
+    card = devices[rank]
+    torch.cuda.set_device(card)
+    backend = "gloo" if len(set(devices)) < len(devices) else "nccl"
+    distributed_init(address, len(devices), rank, backend=backend)
+    batch = dict(np.load(batch_path))
+    out = {"backend": backend}
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, data, model in checks:
+            out[name] = _mesh_step(make_mesh(devices, data=data, model=model),
+                                   {k: v[:2] for k, v in batch.items()}, card)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    timed = make_mesh(devices)
+    st = fresh_train_state(card, mesh=timed)
+    resident = {k: torch.as_tensor(v).to(card) for k, v in batch.items()}
+    step_fn = make_train_step(torch.bfloat16, mesh=timed)
+    out["bf16_ms"] = train_step_ms(st, step_fn, resident, MESH_WARMUP_STEPS, MESH_TIMED_STEPS)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["profile"] = train_step_profile(st, step_fn, resident, steps=2)  # every rank steps
+    # the step's gradient all-reduce alone: one float32 buffer of every parameter
+    grads = torch.ones(sum(p.numel() for p in st.model.parameters()), device=card)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(grads, group=timed.group("data"))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["grad_allreduce_ms"], out["grad_mb"] = statistics.median(times[1:]), grads.numel() * 4e-6
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_mesh_train(smi: str, trained: dict) -> None:
+    """Phase mesh (b)-(d), held against phase train's single-process step
+    (``trained``): on one card two processes on cuda:0 over gloo, at data
+    2 and at model 2; on several, one process a card over NCCL, at data 2
+    x model 2 (4 cards) or data 2 x model cards/2. Then the bf16 step at
+    data = every process, timed."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from video_desensitization_torch.parallel.mesh import localhost_address
+
+    cards = torch.cuda.device_count()
+    if cards == 1:
+        devices = [torch.device("cuda", 0)] * 2
+        checks = [("data2", 2, 1), ("model2", 1, 2)]
+    else:
+        devices = [torch.device("cuda", i) for i in range(cards)]
+        checks = [("data2-model2", 2, 2)] if cards == 4 else [("data2", 2, cards // 2)]
+    runs = trained["step"]["runs"]
+    single, f64 = runs["card"], runs["f64"]
+    single_err = update_error(single, f64)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        batch_path, out_path = os.path.join(tmp, "batch.npz"), os.path.join(tmp, "out.pkl")
+        np.savez(batch_path, **trained["batch"])
+        address = localhost_address()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, address, devices, checks, batch_path, out_path))
+                 for r in range(len(devices))]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(MESH_RANK_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        check(all(p.exitcode == 0 for p in procs),
+              f"phase mesh ranks exited {[p.exitcode for p in procs]}")
+        with open(out_path, "rb") as f:
+            out = pickle.load(f)
+    seconds = time.perf_counter() - t0
+    parts = []
+    for name, _, _ in checks:
+        run = out[name]
+        check(run[3] == 0, f"{name}: after {MESH_EQUAL_STEPS} steps {run[3]} parameter elements "
+                           f"differ between the ranks that hold them")
+        check(np.isfinite(run[0]) and abs(run[0] - single[0]) <= 1e-5 * abs(single[0]),
+              f"{name}: loss {run[0]} != the single-process step's {single[0]}")
+        worst, leaf, excess = stats_excess(run, single)
+        check(excess <= 1e-5, f"{name}: BN statistics beyond 1e-5 + 1e-4 relative of the "
+                              f"single-process step's (max abs diff {worst:.3e} at {leaf})")
+        err = update_error(run, f64)
+        check(err <= 2 * single_err, f"{name}: update {err:.3e} from the float64 one, the "
+                                     f"single-process step's {single_err:.3e}")
+        parts.append(f"{name}: loss {run[0]:.7f} (single {single[0]:.7f}), BN statistics max abs "
+                     f"diff {worst:.3e}, update {err:.3e} from float64 (single {single_err:.3e}), "
+                     f"parameters equal on every rank that holds them after {MESH_EQUAL_STEPS} "
+                     f"steps")
+    where = ("two processes on cuda:0 over gloo" if cards == 1
+             else f"{cards} processes, one a card, over {out['backend']}")
+    staging = ("gloo stages every all-reduce through the host, not NVLink, and the two ranks "
+               "share the card" if cards == 1 else f"{out['backend']} between the cards")
+    ms, world, prof = out["bf16_ms"], len(devices), out["profile"]
+    print(f"phase mesh: {smi} | {where}, one float32 step at batch 2 (1 image a data row), "
+          f"TF32 off, from seed 3's weights | " + " | ".join(parts), flush=True)
+    print(f"phase mesh: {smi} | bf16 step at data {world}, ResNet-50 640, batch {TRAIN_BATCH} "
+          f"({TRAIN_BATCH // world} a rank), {where}: {ms:.3f} ms/step, "
+          f"{TRAIN_BATCH / ms * 1e3:.2f} images/s, peak {out['peak_gib']:.2f} GiB a rank "
+          f"(median of {MESH_TIMED_STEPS}; {staging}), of which the gradients' all-reduce "
+          f"alone ({out['grad_mb']:.1f} MB float32) {out['grad_allreduce_ms']:.3f} ms; rank 0 "
+          f"under torch.profiler: {prof['device_ms']:.3f} ms of device time in "
+          f"{prof['kernels']:.0f} kernels a step (" + ", ".join(
+              f"{k} {v:.3f}" for k, v in prof["classes"].items()) + " ms) | single "
+          f"process: {trained['bf16_ms']:.3f} ms/step, "
+          f"{TRAIN_BATCH / trained['bf16_ms'] * 1e3:.2f} images/s | {seconds:.1f} s", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1556,9 +1923,11 @@ def main() -> int:
     tracked = phase_tracked(main_engine)
     multicam = phase_multicam(main_engine)
     serve = phase_serve(main_engine)
+    mesh = phase_mesh_engine(main_engine)
     del main_engine
     phase_stream()
     trained = phase_train(smi)
+    phase_mesh_train(smi, trained)
     phase_reference()
     kernel = {
         "name": "mosaic",
@@ -1584,6 +1953,8 @@ def main() -> int:
         "multicam_launches": multicam["launches"],
         "serve_launches": serve["launches"],
         "train_launches": trained["launches"],
+        "mesh_launches": mesh["launches"],
+        "mesh_devices": mesh["devices"],
     }
     print(json.dumps({"kernels": [kernel]}))
     print(smi)

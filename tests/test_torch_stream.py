@@ -1,7 +1,7 @@
 """The port's entry points against the JAX package's: ``process_video_stream``
 (transports rgb, yuv420 and auto, and the fallback to rgb for a source with
 no I420 form or an engine without an I420 program), and the CLI
-(``--video``, ``--images``, ``--profile``, ``engine = auto``, the refusal)
+(``--video``, ``--images``, ``--profile``, ``engine = auto``, ``mesh_data``)
 with one config.ini parsed the same by both packages.
 
 Small sizes: 96x160 frames, RetinaFace-mobilenet + YOLOv8n at 128 in float32
@@ -10,6 +10,7 @@ with the JAX package's weights for the stream; the CLI's own ResNet-50 at
 skip without it."""
 
 import dataclasses
+import logging
 import os
 
 import numpy as np
@@ -31,6 +32,7 @@ from video_desensitization_torch.cli.main import build_engine, main, pick_engine
 from video_desensitization_torch.detect.face import Retinaface
 from video_desensitization_torch.detect.plate import PlateDetector
 from video_desensitization_torch.models.convert import from_jax_variables
+from video_desensitization_torch.parallel import mesh as mesh_lib
 from video_desensitization_torch.pipeline import streaming
 from video_desensitization_torch.pipeline.engine import DesensitizationEngine
 from video_desensitization_torch.pipeline.throughput import TieredPipeline
@@ -212,14 +214,67 @@ def test_cli_refuses_random_weights_without_opt_in(tmp_path):
 
 @pytest.mark.parametrize(
     "setting, item",
-    [(dict(extra="mesh_data=2\n"), "item 17")],
+    [(dict(extra="mesh_data=2\n"), "mesh 2x1 != 1 devices")],
     ids=["mesh_data"],
 )
-def test_cli_refuses_what_is_not_ported(tmp_path, setting, item):
-    """The one setting still refused: a multi-device mesh. detect_interval
-    and co_batch run (tests/test_torch_tracking.py, test_torch_multicam.py)."""
+def test_cli_refuses_what_is_not_ported(tmp_path, setting, item, monkeypatch):
+    """No setting is refused for want of a module any more: ``mesh_data``
+    larger than the devices raises the JAX CLI's ValueError (make_mesh's),
+    here with the one CPU device, and with 8 the message the JAX CLI gives
+    on its 8 virtual devices."""
     with pytest.raises(ValueError, match=item):
         main([_config(tmp_path, **setting), "--images", str(tmp_path), "--device", "cpu"])
+    monkeypatch.setattr(mesh_lib, "local_devices", lambda kind="cuda": [torch.device(kind)] * 8)
+    cfg = _config(tmp_path, extra="mesh_data=16\n")
+    with pytest.raises(ValueError) as mine:
+        build_engine(load_config(cfg, strict=False), with_plates=False, device="cpu")
+    with pytest.raises(ValueError) as theirs:
+        jax_cli.build_engine(jax_load_config(cfg, strict=False), with_plates=False)
+    assert str(mine.value) == str(theirs.value) == "mesh 16x1 != 8 devices"
+
+
+def test_build_engine_puts_the_fused_engine_on_a_mesh(tmp_path, monkeypatch):
+    """With 8 devices (the list patched to 8 CPU devices): mesh_data 8
+    shards the fused engine over all of them, 1 runs on one, and the
+    tiered pipeline at mesh_data 8 logs the JAX CLI's warning and runs on
+    one (``video_desensitization_tpu/cli/main.py:127-159``). mesh_data 0
+    runs on one device and says how to shard, where the JAX CLI takes all
+    of them: on several cards the mesh engine is slower than one card
+    (ROADMAP.md §3)."""
+    monkeypatch.setattr(mesh_lib, "local_devices", lambda kind="cuda": [torch.device(kind)] * 8)
+
+    def build(extra, engine="fused"):
+        cfg = load_config(_config(tmp_path, extra=extra, engine=engine), strict=False)
+        return build_engine(cfg, with_plates=False, device="cpu")
+
+    records = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = records.append
+    logger = logging.getLogger("VideoProcessor.cli")
+    logger.addHandler(handler)
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    try:
+        for extra, shape in (("mesh_data=0\n", None), ("mesh_data=8\n", {"data": 8, "model": 1}),
+                             ("mesh_data=1\n", None)):
+            engine = build(extra)
+            assert isinstance(engine, DesensitizationEngine)
+            assert (engine.mesh and engine.mesh.shape) == shape, extra
+            if extra == "mesh_data=8\n":
+                res = engine.process_batch(np.zeros((3, H, W, 3), np.uint8))
+                assert res.frames.shape == (3, H, W, 3) and len(res.face_boxes) == 3
+        tiered = build("mesh_data=8\n", engine="tiered")
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    assert isinstance(tiered, TieredPipeline)
+    messages = [r.getMessage() for r in records]
+    assert [m for m in messages if "engine=tiered" in m] == [
+        "engine=tiered runs single-chip; mesh_data=8 is ignored "
+        "(use engine=fused for multi-chip batch sharding)"]
+    assert [m for m in messages if m.startswith("mesh_data=0")] == [
+        "mesh_data=0 runs on one of 8 devices; set mesh_data=8 to shard the fused engine "
+        "over all of them"]
 
 
 def test_cli_refuses_the_record_job_and_needs_a_device(tmp_path, monkeypatch):

@@ -193,10 +193,48 @@ def test_train_cli_rejects_empty_labels(tmp_path):
         train(parse_args(_argv(tmp_path)))
 
 
-@pytest.mark.parametrize("mesh", [("2", "1"), ("1", "2"), ("0", "4")], ids=["data2", "model2", "model4"])
-def test_train_cli_refuses_a_mesh(synthetic_set, mesh):
-    with pytest.raises(ValueError, match="ROADMAP.md item 17"):
-        train(parse_args(_argv(synthetic_set, **{"--mesh-data": mesh[0], "--mesh-model": mesh[1]})))
+@pytest.mark.parametrize(
+    "mesh, n_devices, batch, error",
+    [(("2", "1"), 2, "4", None),
+     (("1", "2"), 1, "4", "mesh 1x2 != 1 devices"),
+     (("0", "4"), 8, "3", "batch 3 not divisible by data axis 2")],
+    ids=["data2", "model2", "model4"])
+def test_train_cli_refuses_a_mesh(synthetic_set, tmp_path, monkeypatch, mesh, n_devices, batch,
+                                  error):
+    """``--mesh-data`` / ``--mesh-model`` take the JAX CLI's rules, with the
+    device list patched to ``n_devices`` CPU devices. data2: two processes
+    (this one and a spawned rank) train one epoch of two steps, rank 0
+    writes the checkpoint and the export, and the weights equal one
+    device's run to float32 rounding. model2 on one device and model4 (data
+    2 over 8 devices) with a batch of 3: the JAX CLI's ValueError, the
+    latter word for word as the JAX CLI gives it on its 8 devices."""
+    from video_desensitization_tpu.cli import train as jax_train_cli
+
+    from video_desensitization_torch.parallel import mesh as mesh_lib
+
+    monkeypatch.setattr(mesh_lib, "local_devices", lambda kind="cuda": [torch.device(kind)] * n_devices)
+    over = {"--mesh-data": mesh[0], "--mesh-model": mesh[1], "--batch-size": batch, "--epochs": "1"}
+    if error:
+        with pytest.raises(ValueError, match=error):
+            train(parse_args(_argv(synthetic_set, **over)))
+        if n_devices == 8:
+            with pytest.raises(ValueError) as theirs:
+                jax_train_cli.train(jax_train_cli.parse_args(_argv(synthetic_set, device=None, **over)))
+            assert str(theirs.value) == error
+        return
+    export = tmp_path / "face.msgpack"
+    state = train(parse_args(_argv(synthetic_set, **over, **{
+        "--ckpt-dir": str(tmp_path / "ck"), "--export": str(export)})))
+    assert state.step == 2 and state.mesh.shape == {"data": 2, "model": 1}
+    assert os.listdir(tmp_path / "ck") == ["ep0001"] and export.stat().st_size > 0
+    one = train(parse_args(_argv(synthetic_set, **{**over, "--mesh-data": "1"})))
+    mine, theirs = to_jax_variables(state.model.state_dict()), to_jax_variables(one.model.state_dict())
+    for kind in ("params", "batch_stats"):
+        for path, a in jax.tree_util.tree_flatten_with_path(mine[kind])[0]:
+            b = theirs[kind]
+            for key in path:
+                b = b[key.key]
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=str(path))
 
 
 def test_train_cli_main_on_one_device(synthetic_set):

@@ -6,8 +6,8 @@ output_h265_dir, output_videos_dir, temp_directory_base, record_output_dir;
 plus the engine's settings under [TPU] (all optional): dtype, mesh_data,
 mosaic_level, max_detections, input_size. The section keeps that name, and
 every key, default and check, so that one config.ini parses the same here
-and in the JAX package; the one key the port cannot honour yet (``mesh_data
-> 1``) is refused by ``cli.main.build_engine``.
+and in the JAX package; ``cli.main.build_engine`` reads ``mesh_data = 0``
+as one device, where the JAX CLI takes every device.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ class PipelineConfig:
     batch_size: int = 16
     # TPU additions
     dtype: str = "bfloat16"
-    mesh_data: int = 0  # 0 = all local devices
+    mesh_data: int = 0  # 0 = one device here (all local devices in the JAX CLI)
     mosaic_level: int = 8
     max_detections: int = 128
     input_size: int = 640

@@ -9,15 +9,18 @@ Usage:
 With only a config.ini it runs the record job (unpack the ``.record`` logs
 under ``[PATHS] record_dir``, desensitize every camera stream, repack a new
 record into ``record_output_dir``); ``--video`` and ``--images`` run one
-video file or an image directory. Everything runs on one device: ``cuda``
-unless ``--device cpu`` is given. The config.ini is the JAX package's
-format. ``[TPU] engine`` picks the tiered pipeline (the default: host
-letterbox and mosaic, boxes-only readback), the fused engine, or ``auto``
-(a host-to-device copy probe picks one); ``[TPU] detect_interval > 1``
-wraps it in keyframe tracking (``pipeline/tracking.py``) and ``[TPU]
-co_batch`` co-batches the record job's cameras (``pipeline/multicam.py``).
-The one setting that needs a module not ported yet, a multi-device mesh
-(``mesh_data > 1``), is refused with the ``ROADMAP.md`` item that ports it.
+video file or an image directory. It runs on ``cuda`` unless ``--device
+cpu`` is given. The config.ini is the JAX package's format. ``[TPU]
+engine`` picks the tiered pipeline (the default: host letterbox and
+mosaic, boxes-only readback), the fused engine, or ``auto`` (a
+host-to-device copy probe picks one); ``[TPU] detect_interval > 1`` wraps
+it in keyframe tracking (``pipeline/tracking.py``) and ``[TPU] co_batch``
+co-batches the record job's cameras (``pipeline/multicam.py``). ``[TPU]
+mesh_data = n > 1`` shards the fused engine's batches over a mesh of n
+devices (which must be every device), as the JAX CLI does; the tiered
+pipeline runs on one and says so. Unlike the JAX CLI, ``mesh_data = 0``
+(the default) runs on one device however many there are: on several
+cards the mesh engine is slower than one card (``ROADMAP.md`` §3).
 """
 
 from __future__ import annotations
@@ -103,32 +106,25 @@ def pick_engine(gib_s: float, transfer: str = "rgb") -> str:
     return "fused" if gib_s >= floor else "tiered"
 
 
-def _refuse_unported(cfg) -> None:
-    """Raise for settings whose modules are not ported yet, naming the
-    ROADMAP.md item and what to set instead."""
-    if cfg.mesh_data > 1:
-        raise ValueError(
-            f"[TPU] mesh_data = {cfg.mesh_data} needs the multi-device mesh, "
-            "which is not ported yet (ROADMAP.md item 17); set [TPU] "
-            "mesh_data = 0 or 1 (one device)"
-        )
-
-
 def build_engine(cfg, with_plates: bool = True, allow_random: bool = False, device=None):
     """The engine of ``cfg`` on ``device`` (``cuda`` unless the caller
     passes ``"cpu"``; with neither CUDA nor a device given it raises): the
     tiered pipeline, the fused engine, or for ``engine = auto`` the one
     ``pick_engine`` takes at the probed link rate (``cfg`` is not changed,
-    so each build probes anew). With ``detect_interval > 1`` the engine is
-    wrapped in a ``TrackingEngine`` that detects in batches of
-    ``track_detect_batch``, or ``batch_size`` when that is 0."""
+    so each build probes anew). ``mesh_data`` above 1 puts the fused
+    engine on a mesh of the devices of its kind
+    (``parallel.mesh.make_mesh``, which raises where they are not
+    ``mesh_data``); 0 runs on one device, and says so where there are
+    several. With ``detect_interval > 1`` the engine is wrapped in a
+    ``TrackingEngine`` that detects in batches of ``track_detect_batch``,
+    or ``batch_size`` when that is 0."""
     from video_desensitization_torch.detect.face import Retinaface
     from video_desensitization_torch.detect.plate import PlateDetector
+    from video_desensitization_torch.parallel import mesh as mesh_lib
     from video_desensitization_torch.pipeline.engine import DesensitizationEngine
     from video_desensitization_torch.pipeline.throughput import TieredPipeline
     from video_desensitization_torch.utils.logging import get_logger
 
-    _refuse_unported(cfg)
     device = resolve_device(device)
     engine_mode = cfg.engine
     if engine_mode == "auto":
@@ -139,6 +135,15 @@ def build_engine(cfg, with_plates: bool = True, allow_random: bool = False, devi
             gib_s, engine_mode, cfg.transfer,
         )
     dtype = DTYPES[cfg.dtype]
+    mesh = None
+    devices = mesh_lib.local_devices(device.type)
+    if cfg.mesh_data > 1:
+        mesh = mesh_lib.make_mesh(devices, data=cfg.mesh_data)
+    elif cfg.mesh_data == 0 and len(devices) > 1:
+        get_logger("cli").info(
+            "mesh_data=0 runs on one of %d devices; set mesh_data=%d to shard the "
+            "fused engine over all of them", len(devices), len(devices),
+        )
     face = Retinaface(
         model_path=_resolve_checkpoint(cfg.model_path, allow_random, "face"),
         backbone="resnet50",
@@ -159,13 +164,19 @@ def build_engine(cfg, with_plates: bool = True, allow_random: bool = False, devi
             device=device,
         )
     if engine_mode == "tiered":
+        if mesh is not None:
+            get_logger("cli").warning(
+                "engine=tiered runs single-chip; mesh_data=%s is ignored "
+                "(use engine=fused for multi-chip batch sharding)",
+                cfg.mesh_data,
+            )
         engine = TieredPipeline(
             face, plate, mosaic_level=cfg.mosaic_level, transfer=cfg.transfer,
             anonymizer=cfg.anonymizer,
         )
     else:
         engine = DesensitizationEngine(
-            face, plate, mosaic_level=cfg.mosaic_level, anonymizer=cfg.anonymizer
+            face, plate, mosaic_level=cfg.mosaic_level, anonymizer=cfg.anonymizer, mesh=mesh
         )
     if cfg.detect_interval > 1:
         from video_desensitization_torch.pipeline.tracking import TrackingEngine

@@ -16,19 +16,29 @@ Usage:
 
 The flags and defaults are the JAX trainer's: SGD momentum 0.9, weight
 decay 5e-4, base lr 1e-3 with x0.1 decays at epoch milestones and a linear
-warmup. It runs on one device, ``cuda`` unless ``--device cpu`` is given;
-a multi-device mesh (``--mesh-data`` above 1, ``--mesh-model`` above 1) is
-not ported yet and is refused.
+warmup. It runs on ``cuda`` unless ``--device cpu`` is given.
+``--mesh-data`` and ``--mesh-model`` take the JAX rules: data 0 means
+every device divided by model, the first data x model devices are used,
+and the batch must divide by data. A mesh of more than one device runs one
+process per device (this one is rank 0 and starts the others; under a
+launcher that made the process group already, each process is its rank),
+and only rank 0 logs steps, writes checkpoints and exports.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
+import multiprocessing
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+# How long rank 0 waits for the other ranks to exit once it is done.
+JOIN_TIMEOUT_S = 120
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -57,9 +67,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         "and the loss stay float32",
     )
     p.add_argument("--mesh-data", type=int, default=1,
-                   help="data-parallel axis size: 0 or 1 (one device) only")
+                   help="data-parallel axis size (0 = all devices / model)")
     p.add_argument("--mesh-model", type=int, default=1,
-                   help="tensor-parallel axis size: 1 only")
+                   help="tensor-parallel axis size (conv output channels)")
     p.add_argument("--ckpt-dir", default=None, help="checkpoint directory")
     p.add_argument("--save-every", type=int, default=1, help="checkpoint every N epochs")
     p.add_argument("--resume", default=None, help="checkpoint file to resume from")
@@ -99,12 +109,100 @@ def build_optimizer(args, steps_per_epoch: int, model: torch.nn.Module):
 
 
 def train(args: argparse.Namespace):
-    """Run the training loop; returns the final TrainState."""
+    """Run the training loop; returns the final TrainState (rank 0's on a
+    mesh, with its own slice of any split kernel)."""
     from video_desensitization_torch import resolve_device
+
+    device = resolve_device(args.device)
+    mesh = build_mesh(args, device)
+    if mesh is None:
+        return _train(args, device, None)
+    if dist.is_initialized():  # a launcher started one process per device
+        return _train(args, mesh.devices.flat[dist.get_rank()], mesh)
+    return _launch(args, mesh)
+
+
+def build_mesh(args: argparse.Namespace, device: torch.device):
+    """The JAX CLI's mesh of ``--mesh-data`` x ``--mesh-model`` over the
+    devices of ``device``'s kind, or None for one device."""
+    from video_desensitization_torch.parallel import mesh as mesh_lib
+
+    devices = mesh_lib.local_devices(device.type)
+    if args.mesh_data == 0 and (len(devices) > 1 or args.mesh_model > 1):
+        mesh = mesh_lib.make_mesh(devices, model=args.mesh_model)
+    elif args.mesh_data > 1 or args.mesh_model > 1:
+        mesh = mesh_lib.make_mesh(
+            devices[: args.mesh_data * args.mesh_model],
+            data=max(1, args.mesh_data),
+            model=args.mesh_model,
+        )
+    else:
+        return None
+    if args.batch_size % mesh.shape["data"] != 0:
+        raise ValueError(
+            f"batch {args.batch_size} not divisible by data axis {mesh.shape['data']}"
+        )
+    return mesh
+
+
+def _launch(args: argparse.Namespace, mesh):
+    """Run rank 0 here and ranks 1.. in spawned processes, one a device of
+    ``mesh``, over a process group on localhost (gloo on the CPU, NCCL on
+    the cards); raise if any rank fails."""
+    from video_desensitization_torch.parallel.mesh import distributed_init, localhost_address
+
+    devices = list(mesh.devices.flat)
+    address = localhost_address()
+    backend = "gloo" if devices[0].type == "cpu" else "nccl"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [
+        ctx.Process(target=_rank_main, args=(
+            rank, address, args, devices, mesh.devices.shape, backend, torch.get_num_threads()))
+        for rank in range(1, len(devices))
+    ]
+    for p in procs:
+        p.start()
+    try:
+        if devices[0].type == "cuda":
+            torch.cuda.set_device(devices[0])
+        distributed_init(address, len(devices), 0, backend)
+        state = _train(args, devices[0], mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for p in procs:
+            p.join(JOIN_TIMEOUT_S)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    failed = [(rank, p.exitcode) for rank, p in enumerate(procs, 1) if p.exitcode != 0]
+    if failed:
+        raise RuntimeError(f"training ranks failed (rank, exit code): {failed}")
+    return state
+
+
+def _rank_main(rank, address, args, devices, shape, backend, threads) -> None:
+    """A spawned rank of ``_launch``."""
+    from video_desensitization_torch.parallel.mesh import distributed_init, make_mesh
+
+    torch.set_num_threads(threads)
+    if devices[rank].type == "cuda":
+        torch.cuda.set_device(devices[rank])
+    distributed_init(address, len(devices), rank, backend)
+    try:
+        _train(args, devices[rank], make_mesh(devices, *shape))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, device: torch.device, mesh):
+    """The training loop on ``device``: alone, or as this process's rank of
+    ``mesh``."""
     from video_desensitization_torch.models.common import load_weights
     from video_desensitization_torch.models.configs import cfg_mnet, cfg_re50
     from video_desensitization_torch.models.retinaface import RetinaFace
     from video_desensitization_torch.ops.anchors import generate_anchors
+    from video_desensitization_torch.parallel.tensor import shard_model
     from video_desensitization_torch.train.checkpoint import (
         export_inference_variables,
         restore_train_state,
@@ -118,14 +216,11 @@ def train(args: argparse.Namespace):
     )
     from video_desensitization_torch.utils.logging import get_logger
 
-    if args.mesh_data > 1 or args.mesh_model != 1:
-        raise ValueError(
-            f"--mesh-data {args.mesh_data} --mesh-model {args.mesh_model} needs the "
-            "multi-device mesh, which is not ported yet (ROADMAP.md item 17); use "
-            "--mesh-data 0 or 1 and --mesh-model 1 (one device)"
-        )
-    device = resolve_device(args.device)
+    if mesh is not None and device.type == "cuda":
+        torch.cuda.set_device(device)  # a launcher's rank comes here unset
     log = get_logger("train")
+    if mesh is not None and dist.get_rank() != 0:
+        log.setLevel(logging.WARNING)  # rank 0 logs the run
     hw = (args.input_size, args.input_size)
     cfg = cfg_re50 if args.backbone == "resnet50" else cfg_mnet
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
@@ -155,18 +250,22 @@ def train(args: argparse.Namespace):
         "%d annotated images | %d steps/epoch @ batch %d | input %dx%d (%s) on %s",
         len(labels), steps_per_epoch, args.batch_size, *hw, args.backbone, device,
     )
+    if mesh is not None:
+        log.info("mesh: %s, one process a device", mesh.shape)
 
     model = RetinaFace(cfg, mode="train")
     load_weights(model, None, None, args.seed)
+    if mesh is not None:
+        shard_model(model, mesh)
     optimizer, schedule = build_optimizer(args, steps_per_epoch, model)
-    state = create_train_state(model, optimizer, schedule, device=device)
+    state = create_train_state(model, optimizer, schedule, device=device, mesh=mesh)
     if args.resume:
         state = restore_train_state(args.resume, state)
         log.info("resumed from %s at step %d", args.resume, state.step)
 
     anchors = generate_anchors(hw, min_sizes=cfg["min_sizes"], steps=cfg["steps"])
-    step_fn = make_train_step(compute_dtype)
-    eval_fn = make_eval_step(compute_dtype) if val_labels else None
+    step_fn = make_train_step(compute_dtype, mesh=mesh)
+    eval_fn = make_eval_step(compute_dtype, mesh=mesh) if val_labels else None
 
     def run_validation(epoch):
         n, tot = 0, 0.0

@@ -6,11 +6,15 @@ Constructor keywords follow the reference class (``model_path``,
 ``letterbox_image``); ``device`` picks the card (``cuda`` unless the caller
 passes ``device="cpu"``) and ``dtype`` the network's compute type.
 Results are padded (B, K, 15) rows plus a keep mask on the device, turned
-into the reference's per-image box lists at the API boundary.
+into the reference's per-image box lists at the API boundary. With a
+``mesh`` (``parallel/mesh.py``) the detector holds one replica per data
+shard and ``detect_padded`` pads the batch to the mesh's device count,
+runs each shard on its device and joins the shards in order.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -30,6 +34,12 @@ from video_desensitization_torch.ops.boxes import (
 )
 from video_desensitization_torch.ops.image import preprocess_batch_device
 from video_desensitization_torch.ops.nms import batched_nms_padded
+from video_desensitization_torch.parallel.mesh import (
+    data_parallel_program,
+    pad_batch_to_devices,
+    shard_batch,
+    shard_params,
+)
 
 
 class Retinaface:
@@ -45,6 +55,7 @@ class Retinaface:
         "max_detections": 128,
         "dtype": torch.bfloat16,
         "seed": 0,
+        "mesh": None,
     }
 
     def __init__(
@@ -58,6 +69,8 @@ class Retinaface:
             if name not in self._defaults:
                 raise TypeError(f"unknown Retinaface option {name!r}")
             setattr(self, name, value)
+        if device is None and self.mesh is not None:
+            device = self.mesh.devices.flat[0]
         self.device = resolve_device(device)
         self.cfg = get_config(self.backbone)
         self.input_hw = (int(self.input_shape[0]), int(self.input_shape[1]))
@@ -70,6 +83,22 @@ class Retinaface:
         self.net.eval().to(device=self.device, dtype=self.dtype)
         if self.device.type == "cuda":
             self.net.to(memory_format=torch.channels_last)
+        if self.mesh is not None:
+            self._replicas = self.replicate(self.mesh)
+            self._mesh_program = data_parallel_program(
+                self.mesh, Retinaface._detect_program, n_params=1, n_batch_args=2, n_out=3)
+
+    def replicate(self, mesh) -> List["Retinaface"]:
+        """This detector once per data shard of ``mesh``, on the shard's
+        device (``shard_params``), with no mesh of its own."""
+        replicas = []
+        for dev, net in zip(mesh.data_devices(), shard_params(mesh, self.net)):
+            r = copy.copy(self)
+            r.__dict__.pop("_replicas", None)
+            r.__dict__.pop("_mesh_program", None)
+            r.mesh, r.device, r.net, r.anchors = None, dev, net, self.anchors.to(dev)
+            replicas.append(r)
+        return replicas
 
     @torch.inference_mode()
     def _detect_program(self, frames_u8: torch.Tensor, image_shapes: torch.Tensor):
@@ -96,9 +125,23 @@ class Retinaface:
         b, h, w, _ = frames_u8.shape
         if image_shapes is None:
             image_shapes = np.tile(np.array([[h, w]], np.float32), (b, 1))
-        frames = torch.as_tensor(np.ascontiguousarray(frames_u8)).to(self.device)
-        shapes = torch.as_tensor(np.asarray(image_shapes, np.float32)).to(self.device)
-        return self._detect_program(frames, shapes)
+        if self.mesh is not None:
+            return tuple(t[:b] for t in self._run(frames_u8, image_shapes)())
+        return self._run(frames_u8, image_shapes)()
+
+    def _run(self, frames_u8: np.ndarray, image_shapes: np.ndarray):
+        """The inputs placed on the device (on a mesh: padded to its device
+        count and sharded) and a call that runs the program on them."""
+        frames_u8 = np.ascontiguousarray(frames_u8)
+        image_shapes = np.asarray(image_shapes, np.float32)
+        if self.mesh is None:
+            frames = torch.as_tensor(frames_u8).to(self.device)
+            shapes = torch.as_tensor(image_shapes).to(self.device)
+            return lambda: self._detect_program(frames, shapes)
+        n = self.mesh.size
+        frames = shard_batch(self.mesh, pad_batch_to_devices(frames_u8, n)[0])
+        shapes = shard_batch(self.mesh, pad_batch_to_devices(image_shapes, n)[0])
+        return lambda: self._mesh_program(self._replicas, frames, shapes)
 
     def detect_images(
         self, images: Sequence[np.ndarray]
@@ -122,17 +165,18 @@ class Retinaface:
     def get_FPS(self, image: np.ndarray, test_interval: int = 100) -> float:
         """Reference-parity microbenchmark: mean seconds per detect call on
         one image, 10 warm-up calls then ``test_interval`` timed ones, the
-        device synchronised before and after the timed loop."""
+        devices synchronised before and after the timed loop. On a mesh the
+        image goes through the pad path, one frame per device."""
         batch = np.asarray(image, np.uint8)[None]
-        frames = torch.as_tensor(batch).to(self.device)
-        shapes = torch.tensor([batch.shape[1:3]], dtype=torch.float32, device=self.device)
+        run = self._run(batch, np.array([batch.shape[1:3]], np.float32))
+        devices = [self.device] if self.mesh is None else self.mesh.data_devices()
         for _ in range(10):
-            self._detect_program(frames, shapes)
-        _synchronize(self.device)
+            run()
+        _synchronize(devices)
         t1 = time.time()
         for _ in range(test_interval):
-            self._detect_program(frames, shapes)
-        _synchronize(self.device)
+            run()
+        _synchronize(devices)
         return (time.time() - t1) / test_interval
 
     def get_map_txt(self, image: np.ndarray) -> np.ndarray:
@@ -142,6 +186,7 @@ class Retinaface:
         return dets_px[0][keep[0]].cpu().numpy()
 
 
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _synchronize(devices) -> None:
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)

@@ -2,12 +2,14 @@
 
 Preprocessing follows ultralytics: aspect-preserving resize onto a 114-gray
 canvas, /255; boxes map back to original pixels by the exact inverse
-letterbox, clipped to the image.
+letterbox, clipped to the image. With a ``mesh`` the batch is padded,
+sharded and run on one replica per data shard, as in ``detect/face.py``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+import copy
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +19,12 @@ from video_desensitization_torch.models.common import load_weights
 from video_desensitization_torch.models.yolo import YoloV8
 from video_desensitization_torch.ops.image import letterbox_device_auto, letterbox_params
 from video_desensitization_torch.ops.nms import batched_nms_padded
+from video_desensitization_torch.parallel.mesh import (
+    data_parallel_program,
+    pad_batch_to_devices,
+    shard_batch,
+    shard_params,
+)
 
 YOLO_PAD_VALUE = 114.0
 
@@ -41,18 +49,38 @@ class PlateDetector:
         dtype=torch.bfloat16,
         device=None,
         seed: int = 0,
+        mesh=None,
     ):
         self.confidence = confidence
         self.nms_iou = nms_iou
         self.input_hw = (int(input_shape[0]), int(input_shape[1]))
         self.max_detections = max_detections
         self.dtype = dtype
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device)
         self.net = YoloV8(num_classes=num_classes, variant=variant)
         load_weights(self.net, state_dict, model_path, seed)
         self.net.eval().to(device=self.device, dtype=dtype)
         if self.device.type == "cuda":
             self.net.to(memory_format=torch.channels_last)
+        if mesh is not None:
+            self._replicas = self.replicate(mesh)
+            self._mesh_program = data_parallel_program(
+                mesh, PlateDetector._detect_program, n_params=1, n_batch_args=2, n_out=2)
+
+    def replicate(self, mesh) -> List["PlateDetector"]:
+        """This detector once per data shard of ``mesh``, on the shard's
+        device (``shard_params``), with no mesh of its own."""
+        replicas = []
+        for dev, net in zip(mesh.data_devices(), shard_params(mesh, self.net)):
+            r = copy.copy(self)
+            r.__dict__.pop("_replicas", None)
+            r.__dict__.pop("_mesh_program", None)
+            r.mesh, r.device, r.net = None, dev, net
+            replicas.append(r)
+        return replicas
 
     def _forward_nms(self, x: torch.Tensor):
         """Normalized NHWC input -> NMS'd (B, K, 6) [x1,y1,x2,y2,score,cls]
@@ -117,9 +145,18 @@ class PlateDetector:
     def detect_padded(self, frames_u8: np.ndarray):
         """(B, H, W, 3) uint8 -> (dets (B, K, 6), keep (B, K)) on the device."""
         b, h, w, _ = frames_u8.shape
-        shapes = torch.tensor([[h, w]] * b, dtype=torch.float32, device=self.device)
-        frames = torch.as_tensor(np.ascontiguousarray(frames_u8)).to(self.device)
-        return self._detect_program(frames, shapes)
+        frames_u8 = np.ascontiguousarray(frames_u8)
+        shapes = np.tile(np.array([[h, w]], np.float32), (b, 1))
+        if self.mesh is not None:
+            n = self.mesh.size
+            dets, keep = self._mesh_program(
+                self._replicas,
+                shard_batch(self.mesh, pad_batch_to_devices(frames_u8, n)[0]),
+                shard_batch(self.mesh, pad_batch_to_devices(shapes, n)[0]),
+            )
+            return dets[:b], keep[:b]
+        return self._detect_program(
+            torch.as_tensor(frames_u8).to(self.device), torch.as_tensor(shapes).to(self.device))
 
     def get_map_txt(self, image: np.ndarray) -> np.ndarray:
         """Single-image detections for mAP evaluation: (M, 6) rows

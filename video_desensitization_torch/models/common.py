@@ -18,6 +18,7 @@ from video_desensitization_torch.models.convert import (
     load_torch_checkpoint,
     load_variables,
 )
+from video_desensitization_torch.parallel.tensor import all_reduce_sum
 
 BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
 
@@ -30,11 +31,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     whatever the input's dtype) and updates the running statistics with
     momentum 0.9; it takes the unbiased variance ``n/(n-1) * var`` into
     ``running_var``, and the update is then rescaled to Flax's biased
-    ``var`` (``n`` = elements per channel)."""
+    ``var`` (``n`` = elements per channel).
+
+    With a ``data_group`` (``set_data_group``: the ranks that hold the
+    other shards of the batch) the statistics are the global batch's, as
+    the JAX step takes them on a sharded batch: each channel's count, sum
+    and sum of squares (in float32 at least) are summed over the group by a
+    differentiable all-reduce, so the backward is synchronised too, and
+    the variance is Flax's ``E[x^2] - E[x]^2``."""
+
+    data_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.data_group is not None:
+            return self._forward_global(x)
         n = x.numel() // x.shape[1]
         # a copy: autograd keeps the one it was given, which must not change
         var = self.running_var.clone()
@@ -44,6 +56,31 @@ class BatchNorm2d(nn.BatchNorm2d):
             # var - 0.9 * running_var is 0.1 * the unbiased variance
             self.running_var.copy_(var - (var - BN_MOMENTUM * self.running_var) / n)
         return out
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
+        sums = all_reduce_sum(
+            torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]),
+            self.data_group)
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        out = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return out.to(x.dtype)
+
+
+def set_data_group(model: nn.Module, group) -> None:
+    """Every ``BatchNorm2d`` of ``model`` takes its train-mode statistics
+    over ``group`` (None: over its own input)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.data_group = group
 
 
 class ConvBN(nn.Sequential):

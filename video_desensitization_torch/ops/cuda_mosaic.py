@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import threading
 from functools import lru_cache
 from pathlib import Path
 
@@ -70,8 +71,23 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-@lru_cache(maxsize=8)
+# The tables one device holds at once: RGB at the level; I420's Y at the
+# level and U, V at half of it, on planes of half the size.
+TABLES_PER_DEVICE = 4
+_launch_lock = threading.Lock()
+
+
+@lru_cache(maxsize=None)
+def _table_cache():
+    """The cache of device tables, sized for every card of the process."""
+    return lru_cache(maxsize=TABLES_PER_DEVICE * max(1, torch.cuda.device_count()))(_make_table)
+
+
 def _device_table(level: int, maxdim: int, device: torch.device) -> torch.Tensor:
+    return _table_cache()(level, maxdim, device)
+
+
+def _make_table(level: int, maxdim: int, device: torch.device) -> torch.Tensor:
     """The composed table on ``device``, after checking the properties the
     kernel's reachable-box lists rely on: every row of T is non-decreasing,
     and T[b][t] lies in [0, b) for t < b (a box's sources lie inside it)."""
@@ -98,8 +114,10 @@ def mosaic_boxes_batch_cuda_(
     >= 1. boxes: (B, K, 4) int pixel xyxy, unclipped ok; valid: (B, K) bool.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch the
-    kernel on the current stream, counted once per call in
-    ``mosaic_boxes_batch_cuda_.launches``: two CUDA kernels per 128 boxes of
+    kernel on the current stream of their own card (whatever the calling
+    thread's current device), counted once per call in
+    ``mosaic_boxes_batch_cuda_.launches`` (under a lock, so the count is
+    exact across threads): two CUDA kernels per 128 boxes of
     K (a snapshot of the boxes' source rows and each tile's list of boxes
     into scratch, then the in-place write). The boxes are never read on the
     host, so the call does not wait for the device.
@@ -124,17 +142,19 @@ def mosaic_boxes_batch_cuda_(
     maxdim = max(h, w)
     table = _device_table(level, maxdim, frames.device)
     lib = load_library()
-    scratch = torch.empty(
-        lib.vdt_mosaic_scratch_bytes(b, h, w, c), dtype=torch.uint8, device=frames.device
-    )
-    err = lib.vdt_mosaic_launch(
-        frames.data_ptr(), boxes.data_ptr(), valid.data_ptr(), table.data_ptr(),
-        scratch.data_ptr(), b, h, w, c, boxes.shape[1], maxdim,
-        torch.cuda.current_stream(frames.device).cuda_stream,
-    )
+    scratch = frames.new_empty(lib.vdt_mosaic_scratch_bytes(b, h, w, c))
+    # The launch goes to the calling thread's current device: make it the
+    # frames' own, which the stream below belongs to.
+    with torch.cuda.device(frames.device):
+        err = lib.vdt_mosaic_launch(
+            frames.data_ptr(), boxes.data_ptr(), valid.data_ptr(), table.data_ptr(),
+            scratch.data_ptr(), b, h, w, c, boxes.shape[1], maxdim,
+            torch.cuda.current_stream(frames.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"mosaic kernel launch failed: cudaError {err}")
-    mosaic_boxes_batch_cuda_.launches += 1
+    with _launch_lock:
+        mosaic_boxes_batch_cuda_.launches += 1
     return frames
 
 
@@ -165,8 +185,7 @@ def i420_kernel_calls(yuv: torch.Tensor, boxes: torch.Tensor, valid: torch.Tenso
     )
     block_boxes = chroma_boxes(boxes)[:, None].expand(b, 6, k, 4).reshape(b * 6, k, 4)
     block_valid = torch.cat(
-        [torch.zeros((b, 4, k), dtype=torch.bool, device=valid.device),
-         valid[:, None].expand(b, 2, k)],
+        [valid.new_zeros((b, 4, k)), valid[:, None].expand(b, 2, k)],
         dim=1,
     ).reshape(b * 6, k)
     return [
@@ -187,8 +206,9 @@ def mosaic_i420_batch_cuda_(
 
     CPU tensors run the plain ``ops.mosaic.mosaic_i420_batch``; CUDA tensors
     make the two kernel calls of ``i420_kernel_calls`` on the current
-    stream, each counted once in ``mosaic_boxes_batch_cuda_.launches``. The
-    boxes are never read on the host.
+    stream of their own card, each counted once in
+    ``mosaic_boxes_batch_cuda_.launches``. The boxes are never read on the
+    host.
     """
     i420_frame_hw(yuv.shape)
     if level < 1:
@@ -201,8 +221,9 @@ def mosaic_i420_batch_cuda_(
         return yuv.copy_(mosaic_i420_batch(yuv, boxes, valid, level))
     if yuv.device.type != "cuda":
         raise ValueError(f"unsupported device {yuv.device}")
-    boxes = boxes.to(device=yuv.device, dtype=torch.int32)
-    valid = valid.to(device=yuv.device, dtype=torch.bool)
-    for call in i420_kernel_calls(yuv, boxes, valid, level):
-        mosaic_boxes_batch_cuda_(*call)
+    with torch.cuda.device(yuv.device):
+        boxes = boxes.to(device=yuv.device, dtype=torch.int32)
+        valid = valid.to(device=yuv.device, dtype=torch.bool)
+        for call in i420_kernel_calls(yuv, boxes, valid, level):
+            mosaic_boxes_batch_cuda_(*call)
     return yuv

@@ -13,12 +13,20 @@ planes (Y at ``mosaic_level``, U and V at half resolution).
 On CUDA, ``dispatch_batch`` enqueues the host-to-device copy, the program
 and the device-to-host copies on the engine's own stream, through pinned
 host buffers; ``finalize_batch`` waits for that batch only.
+
+With a ``mesh`` (``parallel/mesh.py``) the engine holds one engine of its
+kind per data shard: a replica of both detectors and a stream on each
+device. The batch is padded to the mesh's device count by repeating its
+last frame and cut into contiguous shards; the calling thread dispatches
+every shard, then finalizes every shard, and the results are joined in
+order and cut back to the caller's batch. No collective runs: the frames
+are independent.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -39,6 +47,7 @@ from video_desensitization_torch.ops.mosaic import (
     mosaic_i420_batch,
 )
 from video_desensitization_torch.ops.yuv import i420_to_rgb_u8
+from video_desensitization_torch.parallel.mesh import device_guard, pad_batch_to_devices
 
 
 @dataclasses.dataclass
@@ -58,6 +67,7 @@ class DesensitizationEngine:
         mosaic_level: int = 8,
         anonymizer: str = "mosaic",
         share_letterbox: bool = True,
+        mesh=None,
     ):
         """anonymizer: "mosaic" (the reference pixelation, through the
         mosaic kernel on CUDA) or "gaussian" (``ops.mosaic.gaussian_blur_boxes``).
@@ -66,7 +76,11 @@ class DesensitizationEngine:
         read by both detectors (face sees it unchanged; the plate program
         re-fills the pad with YOLO's 114 gray) instead of each detector
         resizing the full-resolution batch. Needs the cv2-exact formula for
-        the geometry; falls back to per-detector letterboxing otherwise."""
+        the geometry; falls back to per-detector letterboxing otherwise.
+
+        mesh: shard every batch over the mesh's ``data`` axis, one engine
+        per data shard on its device (see the module docstring); None runs
+        on the detectors' device."""
         if anonymizer not in ("mosaic", "gaussian"):
             raise ValueError(f"unknown anonymizer {anonymizer!r}")
         self.face = face_detector
@@ -78,9 +92,19 @@ class DesensitizationEngine:
         self.anonymizer = anonymizer
         self.share_letterbox = share_letterbox
         self._stream = (
-            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+            torch.cuda.Stream(self.device)
+            if self.device.type == "cuda" and mesh is None else None
         )
         self.last_letterbox = None  # "shared-<formula>" or "per-detector-float"
+        self.mesh = mesh
+        self._shards: Optional[List[DesensitizationEngine]] = None
+        if mesh is not None:
+            faces = face_detector.replicate(mesh)
+            plates = plate_detector.replicate(mesh) if plate_detector else [None] * len(faces)
+            self._shards = [
+                DesensitizationEngine(f, p, mosaic_level, anonymizer, share_letterbox)
+                for f, p in zip(faces, plates)
+            ]
 
     @torch.inference_mode()
     def program(self, frames: torch.Tensor, image_shapes: torch.Tensor):
@@ -146,31 +170,13 @@ class DesensitizationEngine:
         frames: uint8 (B, H, W, 3) RGB, or (B, H*3/2, W) planar I420 with H
         and W even, at native resolution, routed by rank. On CUDA the copies
         and the program run on the engine's stream; only the NMS convergence
-        test waits on the device.
+        test waits on the device. On a mesh every shard is dispatched in
+        turn, each with its device current.
         """
-        if frames.ndim == 3:
-            b = frames.shape[0]
-            h, w = i420_frame_hw(frames.shape)
-        elif frames.ndim == 4 and frames.shape[-1] == 3:
-            b, h, w, _ = frames.shape
-        else:
-            raise ValueError(
-                f"expected (B, H, W, 3) RGB or (B, H*3/2, W) I420 frames, got {frames.shape}"
-            )
-        if image_shapes is None:
-            image_shapes = np.tile(np.array([[h, w]], np.float32), (b, 1))
-        elif self.share_letterbox and not np.all(np.asarray(image_shapes) == [h, w]):
-            # The shared canvas is built from the frame-buffer shape; per-frame
-            # image_shapes only drive the inverse box mapping. Content smaller
-            # than the buffer would be letterboxed with its padding on the
-            # shared path and not on the per-detector path: refuse.
-            raise ValueError(
-                "share_letterbox=True requires image_shapes == the frame "
-                f"buffer shape {[h, w]}; got {np.asarray(image_shapes)[0]}. "
-                "Crop/letterbox on the host first, or construct the engine "
-                "with share_letterbox=False."
-            )
+        image_shapes = self._image_shapes(frames, image_shapes)
         frames = np.ascontiguousarray(frames, dtype=np.uint8)
+        if self._shards is not None:
+            return self._dispatch_shards(frames, image_shapes)
         shapes = torch.as_tensor(np.asarray(image_shapes, np.float32))
         if self._stream is None:
             return self.program(torch.from_numpy(frames.copy()), shapes), None
@@ -189,13 +195,73 @@ class DesensitizationEngine:
         # host_in stays referenced until finalize, after its copy completed.
         return host_out, (done, host_in)
 
+    def _image_shapes(self, frames: np.ndarray, image_shapes) -> np.ndarray:
+        """The batch's (B, 2) image shapes, the frame shape by default,
+        after checking the frames' layout."""
+        if frames.ndim == 3:
+            b = frames.shape[0]
+            h, w = i420_frame_hw(frames.shape)
+        elif frames.ndim == 4 and frames.shape[-1] == 3:
+            b, h, w, _ = frames.shape
+        else:
+            raise ValueError(
+                f"expected (B, H, W, 3) RGB or (B, H*3/2, W) I420 frames, got {frames.shape}"
+            )
+        if image_shapes is None:
+            return np.tile(np.array([[h, w]], np.float32), (b, 1))
+        if self.share_letterbox and not np.all(np.asarray(image_shapes) == [h, w]):
+            # The shared canvas is built from the frame-buffer shape; per-frame
+            # image_shapes only drive the inverse box mapping. Content smaller
+            # than the buffer would be letterboxed with its padding on the
+            # shared path and not on the per-detector path: refuse.
+            raise ValueError(
+                "share_letterbox=True requires image_shapes == the frame "
+                f"buffer shape {[h, w]}; got {np.asarray(image_shapes)[0]}. "
+                "Crop/letterbox on the host first, or construct the engine "
+                "with share_letterbox=False."
+            )
+        return image_shapes
+
+    def _dispatch_shards(self, frames: np.ndarray, image_shapes) -> "_ShardedHandle":
+        """Pad to the mesh's device count, cut into one contiguous shard a
+        data row, and dispatch each shard on its device's engine."""
+        n, rows = self.mesh.size, len(self._shards)
+        frames_p, b = pad_batch_to_devices(frames, n)
+        shapes_p, _ = pad_batch_to_devices(np.asarray(image_shapes, np.float32), n)
+        per = frames_p.shape[0] // rows
+        handles = []
+        for i, shard in enumerate(self._shards):
+            with device_guard(shard.device):
+                handles.append(shard.dispatch_batch(frames_p[i * per:(i + 1) * per],
+                                                    shapes_p[i * per:(i + 1) * per]))
+        return _ShardedHandle(handles, b)
+
     def finalize_batch(self, handle) -> EngineResult:
         """Wait for one dispatched batch and gather its result."""
+        if isinstance(handle, _ShardedHandle):
+            return self._finalize_shards(handle)
         outputs, pending = handle
         if pending is not None:
             pending[0].synchronize()
         blurred, face_px, face_keep, plate_px, plate_keep = (t.numpy() for t in outputs)
         return _gather_result(blurred, face_px, face_keep, plate_px, plate_keep)
+
+    def _finalize_shards(self, handle: "_ShardedHandle") -> EngineResult:
+        """Each shard's result in order, joined and cut to the caller's
+        batch (the padding's boxes are not counted)."""
+        parts = [shard.finalize_batch(h) for shard, h in zip(self._shards, handle.handles)]
+        self.last_letterbox = self._shards[0].last_letterbox
+        b = handle.batch
+        frames = parts[0].frames if len(parts) == 1 else np.concatenate([p.frames for p in parts])
+        face_boxes = [fb for p in parts for fb in p.face_boxes][:b]
+        plate_boxes = [pb for p in parts for pb in p.plate_boxes][:b]
+        return EngineResult(
+            frames=frames[:b],
+            face_boxes=face_boxes,
+            plate_boxes=plate_boxes,
+            num_faces=sum(len(f) for f in face_boxes),
+            num_plates=sum(len(p) for p in plate_boxes),
+        )
 
     def process_batch(
         self, frames: np.ndarray, image_shapes: Optional[np.ndarray] = None
@@ -217,6 +283,12 @@ class DesensitizationEngine:
         if yuv_frames.ndim != 3:
             raise ValueError(f"expected (B, H*3/2, W) I420 frames, got {yuv_frames.shape}")
         return self.finalize_batch(self.dispatch_batch(yuv_frames, image_shapes))
+
+
+@dataclasses.dataclass
+class _ShardedHandle:
+    handles: list  # each shard's dispatch_batch handle, in shard order
+    batch: int  # the caller's batch size, before padding
 
 
 def _gaussian_plane(level: int):
