@@ -23,7 +23,20 @@ Phases, each printing one line and asserting:
      mosaic of the engine's own boxes, the same detections as process_batch
      on the cv2-exact RGB of the same frames, and the kernel's device time
      on the Y call and the chroma call beside each one's bound;
-  6. tiered: the CLI's default engine, the tiered pipeline (host letterbox,
+  6. weights: weights from files through the CLI's engine -- the main
+     engine's two networks in float32 from the same seed saved as
+     reference-layout checkpoints (face.pth with a ResNet classifier
+     body.fc.* added, plate.pt), converted to the JAX package's msgpack by
+     `python -m video_desensitization_torch.models.convert` in a
+     subprocess, then cli.main.build_engine from a config.ini naming them:
+     fused from .pth/.pt, fused from msgpack, tiered from msgpack; two
+     batches each: fused boxes and blurred frames equal to the main
+     engine's, tiered boxes equal to the fused ones, 4 mosaic calls; the
+     files' sizes, conversion and build times. It runs after yuv: a
+     subprocess started once torch.profiler has run makes the profiler
+     lose kernels in this process, and yuv is the last phase that holds
+     the profiler's kernel count exactly;
+  7. tiered: the CLI's default engine, the tiered pipeline (host letterbox,
      the detectors on the card, boxes-only readback, host cv2 mosaic), on
      the same detectors and on new 8x1080x1920 RGB batches: process_batch
      and process_stream give the same results, every blurred frame is the
@@ -32,19 +45,19 @@ Phases, each printing one line and asserting:
      frames/s of both warm, in alternating windows, beside the fused
      engine's, stage times alone and inside a stream, bytes each way, the
      engine=auto link probe, and the same batches with transfer = yuv420;
-  7. record: the record job's stages on the committed 1080p fixture
+  8. record: the record job's stages on the committed 1080p fixture
      (tests/fixtures/torch_record_1080p.record, LZ4 chunks): unpack, each
      camera stream checked byte for byte, then every stream through the
      tiered and the fused engine (process_single_video), every frame back,
      the kernel's calls counted; the CLI's whole record job (main([ini]),
      with the HEVC repack) only where the codec layer can encode HEVC,
      which is asked before anything runs, and the line says which;
-  8. stream: the CLI (cli.main.main) at full width on a short synthetic
+  9. stream: the CLI (cli.main.main) at full width on a short synthetic
      1080p video: the fused engine with transfer = yuv420 and then rgb,
      then the CLI's default engine (no engine key: the tiered pipeline
      through process_stream); every frame back, the kernel's calls counted
      (0 on the default), and the codec path (native libav or cv2);
-  9. tracked: keyframe tracking (TrackingEngine, interval 4, keyframe
+ 10. tracked: keyframe tracking (TrackingEngine, interval 4, keyframe
      batches of 8) over the same engine on 64 1080p frames, RGB then I420:
      every frame back in order, 2 (RGB) and 4 (I420) kernel calls, each
      keyframe's detections equal to process_batch on the same keyframes
@@ -53,18 +66,18 @@ Phases, each printing one line and asserting:
      under its own boxes, interval 1 equal to the engine; frames/s against
      the fused engine streamed two batches deep over the same frames, in
      alternating warm windows, and the host blur ms per gap frame;
- 10. multicam: the record fixture's two camera streams co-batched
+ 11. multicam: the record fixture's two camera streams co-batched
      (process_videos_cobatched) four ways -- fused RGB, fused yuv420,
      tiered, fused at detect_interval 4 -- every frame back per camera,
      the kernel's calls counted (4, 8, 0, 1), the per-camera counts and
      per-frame boxes equal to process_single_video's; the CLI's co-batched
      record job only where HEVC can be encoded;
- 11. serve: the resident service (DesensitizationService) on the fused
+ 12. serve: the resident service (DesensitizationService) on the fused
      engine serving one 24-frame 1080p video job from an inbox with its
      .complete marker, /healthz and /status read while it runs, the
      journal line, the output's frames and 3 kernel calls; then
      cli.doctor.collect() on one line;
- 12. train: RetinaFace training at full width (ResNet-50, 640, batch 32):
+ 13. train: RetinaFace training at full width (ResNet-50, 640, batch 32):
      a synthetic labelled set of 1080p JPEGs with a few faces each, the
      port's training CLI (cli.train) for 2 short epochs in bf16 with
      checkpoints, a resume and the msgpack export; ms per step and
@@ -75,10 +88,10 @@ Phases, each printing one line and asserting:
      against the CPU from the same weights; 20 steps on one batch (the loss
      falls); the export loaded into the port's Retinaface on the card; the
      mosaic kernel launched 0 times;
- 13. reference: the card against the CPU on the same weights in float32:
+ 14. reference: the card against the CPU on the same weights in float32:
      both networks, then the rest of the engine's program (letterbox
      canvas, decode, NMS, inverse letterbox, box order);
- 14. mesh: (a) after phase serve, the fused engine on make_mesh() over
+ 15. mesh: (a) after phase serve, the fused engine on make_mesh() over
      every card (1x1 on a machine with one) beside the single-device
      engine on the same RGB and I420 batches: frames bitwise equal, the
      same boxes kept, mosaic calls = cards x batches (RGB) and 2 x cards x
@@ -119,6 +132,7 @@ WARMUP_BATCHES = 2
 TIERED_WINDOWS = 3
 STREAM_REPEATS = 3
 TIMED_CALLS = 50
+WEIGHTS_BATCHES = 2  # batches through each engine built from files in phase weights
 TRACK_FRAMES, TRACK_INTERVAL, TRACK_WINDOWS = 64, 4, 3
 TRACK_TIMED_FRAMES = 256  # 8 keyframe batches at interval 4 and batch 8
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_INPUT = 64, 32, 640
@@ -351,6 +365,127 @@ def phase_engine(engine) -> dict:
         flush=True,
     )
     return {**timing, "launches": launches, "fps": fps}
+
+
+def phase_weights(main_engine, smi: str) -> dict:
+    """Weights from files through the CLI's engine. The main engine's two
+    networks, rebuilt in float32 on the CPU from the same seed
+    (``main_path_engine``), are saved as reference-layout checkpoints --
+    ``face.pth`` with a ResNet classifier ``body.fc.*`` added (dropped on
+    load, as the JAX converter drops it) and ``plate.pt`` -- and converted
+    by ``python -m video_desensitization_torch.models.convert`` in a
+    subprocess. ``cli.main.build_engine`` then builds, with no random
+    weights allowed, the fused engine from the ``.pth``/``.pt`` paths, the
+    fused engine from the msgpack paths and the tiered pipeline from the
+    msgpack paths. The config has no key for the plate detector's
+    ``max_detections`` (64 in the CLI), so each built engine's is set to the
+    main engine's 8. Each runs WEIGHTS_BATCHES batches: the fused engines
+    keep the main engine's boxes and give its blurred frames bit for bit,
+    the tiered one keeps the fused boxes (as phase tiered checks), and the
+    mosaic kernel is launched once a batch by each fused engine and never
+    by the tiered one. The main engine's own results come first, before
+    the launch count is reset."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from video_desensitization_torch.api.config import load_config
+    from video_desensitization_torch.bench_util import main_path_engine
+    from video_desensitization_torch.cli.main import build_engine
+    from video_desensitization_torch.ops import cuda_mosaic
+    from video_desensitization_torch.pipeline.throughput import TieredPipeline
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(9)
+    batches = [
+        rng.integers(0, 256, (BATCH, HEIGHT, WIDTH, 3), dtype=np.uint8)
+        for _ in range(WEIGHTS_BATCHES)
+    ]
+    want = [main_engine.process_batch(frames) for frames in batches]
+    sizes, convert_s, build_s = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = main_path_engine(device="cpu", dtype=torch.float32)
+        face_sd = dict(ref.face.net.state_dict())
+        gen = torch.Generator().manual_seed(1)
+        face_sd["body.fc.weight"] = torch.randn(1000, 2048, generator=gen) * 0.01
+        face_sd["body.fc.bias"] = torch.zeros(1000)
+        checkpoints = {"face": (f"{tmp}/face.pth", face_sd, "retinaface"),
+                       "plate": (f"{tmp}/plate.pt", ref.plate.net.state_dict(), "yolo")}
+        del ref
+        for name, (src, state, arch) in checkpoints.items():
+            torch.save(state, src)
+            dst = f"{tmp}/{name}.msgpack"
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "video_desensitization_torch.models.convert", src, dst,
+                 "--arch", arch],
+                cwd=REPO, capture_output=True, text=True, timeout=600,
+            )
+            convert_s[name] = time.perf_counter() - t0
+            check(out.returncode == 0, f"converting {src} failed: {out.stderr[-2000:]}")
+            check(out.stdout.startswith(f"wrote {dst}: "), f"converter said {out.stdout!r}")
+            sizes[name] = (os.path.getsize(src), os.path.getsize(dst))
+
+        configs = [
+            ("fused .pth/.pt", "fused", f"{tmp}/face.pth", f"{tmp}/plate.pt"),
+            ("fused msgpack", "fused", f"{tmp}/face.msgpack", f"{tmp}/plate.msgpack"),
+            ("tiered msgpack", "tiered", f"{tmp}/face.msgpack", f"{tmp}/plate.msgpack"),
+        ]
+        engines = []
+        for i, (name, mode, face_path, plate_path) in enumerate(configs):
+            ini = f"{tmp}/{i}.ini"
+            with open(ini, "w") as f:
+                f.write(
+                    f"[PATHS]\nmodel_path={face_path}\nmodel_weights={plate_path}\n"
+                    f"[SETTINGS]\nbatch_size={BATCH}\n[TPU]\nengine={mode}\ndtype=bfloat16\n"
+                    f"input_size=640\nmax_detections={main_engine.face.max_detections}\n"
+                    f"nms_iou={main_engine.face.nms_iou}\nmosaic_level={main_engine.mosaic_level}\n"
+                )
+            t0 = time.perf_counter()
+            engine = build_engine(load_config(ini, strict=False))  # no record job: no [PATHS] dirs
+            torch.cuda.synchronize()
+            build_s[name] = time.perf_counter() - t0
+            check(isinstance(engine, TieredPipeline) == (mode == "tiered"), f"{name}: wrong engine")
+            engine.plate.max_detections = main_engine.plate.max_detections
+            engines.append((name, engine))
+
+    cuda_mosaic.mosaic_boxes_batch_cuda_.launches = 0
+    results = {name: [engine.process_batch(frames) for frames in batches]
+               for name, engine in engines}
+    launches = cuda_mosaic.mosaic_boxes_batch_cuda_.launches
+    fused = ["fused .pth/.pt", "fused msgpack"]
+    check(launches == len(fused) * WEIGHTS_BATCHES,
+          f"mosaic kernel launched {launches}x, not once a batch by each fused engine")
+    n_boxes, box_err = 0, 0.0
+    for j, main_res in enumerate(want):
+        for name in fused:
+            res = results[name][j]
+            check(res.face_boxes == main_res.face_boxes and res.plate_boxes == main_res.plate_boxes,
+                  f"{name}: kept boxes differ from the main engine's")
+            check(np.array_equal(res.frames, main_res.frames),
+                  f"{name}: blurred frames differ from the main engine's")
+        tiered = results["tiered msgpack"][j]
+        for a, b in zip(tiered.face_boxes + tiered.plate_boxes,
+                        main_res.face_boxes + main_res.plate_boxes):
+            check(len(a) == len(b), "the tiered engine kept other boxes than the fused ones")
+            n_boxes += len(a)
+            if a:
+                box_err = max(box_err, float(np.abs(np.asarray(a) - np.asarray(b)).max()))
+    check(box_err <= 1e-3, f"tiered boxes differ from the fused ones by {box_err} px")
+    print(
+        f"phase weights: {smi} | face.pth {sizes['face'][0]} bytes (body.fc.* added) -> "
+        f"face.msgpack {sizes['face'][1]} bytes in {convert_s['face']:.2f} s, plate.pt "
+        f"{sizes['plate'][0]} bytes -> plate.msgpack {sizes['plate'][1]} bytes in "
+        f"{convert_s['plate']:.2f} s (the converter subprocess's wall time); build_engine: "
+        + ", ".join(f"{name} {s:.2f} s" for name, s in build_s.items())
+        + f"; {WEIGHTS_BATCHES}x{BATCH}x{HEIGHT}x{WIDTH} RGB each: fused engines' boxes and "
+        f"blurred frames == the main engine's, tiered boxes == fused (within {box_err:.2e} px), "
+        f"{n_boxes / (WEIGHTS_BATCHES * BATCH):.2f} boxes/frame, mosaic launches {launches} | "
+        f"{time.perf_counter() - t_phase:.1f} s",
+        flush=True,
+    )
+    return {"launches": launches}
 
 
 def phase_yuv(engine, rgb_fps: float) -> dict:
@@ -1918,6 +2053,7 @@ def main() -> int:
     main_engine = main_path_engine()
     engine = phase_engine(main_engine)
     yuv = phase_yuv(main_engine, engine["fps"])
+    weights = phase_weights(main_engine, smi)  # after yuv: its subprocesses cost the profiler kernels
     phase_tiered(main_engine)
     phase_record(main_engine)
     tracked = phase_tracked(main_engine)
@@ -1943,6 +2079,7 @@ def main() -> int:
         "library_ms": None,
         "host_ms": engine["host_ms"],
         "cuda_kernels_per_call": engine["kernels_per_call"],
+        "weights_launches": weights["launches"],
         "i420_launches": yuv["launches"],
         "i420_calls_per_batch": yuv["launches"] // (WARMUP_BATCHES + ENGINE_BATCHES),
         "i420_y_ms": yuv["y"]["ms"],

@@ -153,3 +153,13 @@ def test_detector_entry_points_match_the_engine(detectors, frames):
         assert got[0][1] == boxes[0] and got[2][1] == boxes[1]
     assert got_face[1][1] == face.detect_images([other])[0][1]
     assert got_plate[1][1] == plate([other], conf=0.0)[0][1]
+
+
+@pytest.mark.parametrize("name", ["model_path", "backbone", "confidence", "nms_iou", "input_shape",
+                                  "letterbox_image", "max_detections", "mesh", "no_such_option"])
+def test_get_defaults_matches_jax(name):
+    """The class's defaults and the message for an unknown name; ``dtype``
+    is bfloat16 in both, each package's own type."""
+    assert Retinaface.get_defaults(name) == JaxRetinaface.get_defaults(name)
+    assert Retinaface.get_defaults("dtype") == torch.bfloat16
+    assert JaxRetinaface.get_defaults("dtype") == jnp.bfloat16

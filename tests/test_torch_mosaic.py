@@ -16,6 +16,8 @@ import torch
 import jax.numpy as jnp
 
 from video_desensitization_tpu.ops.mosaic import (
+    apply_remap as jax_apply_remap,
+    build_mosaic_maps as jax_build_maps,
     composed_mosaic_table as jax_table,
     mosaic_boxes_batch as jax_mosaic,
     mosaic_host_reference,
@@ -24,6 +26,8 @@ from video_desensitization_tpu.ops.pallas_mosaic import mosaic_boxes_batch_palla
 
 from video_desensitization_torch.ops import cuda_mosaic
 from video_desensitization_torch.ops.mosaic import (
+    apply_remap,
+    build_mosaic_maps,
     composed_mosaic_table,
     gaussian_blur_boxes,
     mosaic_boxes_batch,
@@ -139,6 +143,28 @@ def test_sequential_overlap_and_levels_vs_jax(level):
         got, np.asarray(jax_mosaic(jnp.asarray(img[None]), boxes, valid, level))[0]
     )
     np.testing.assert_array_equal(got, mosaic_host_reference(img, boxes[0], level))
+
+
+@pytest.mark.parametrize("level", [4, 8])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mosaic_maps_bitwise_vs_jax(seed, level):
+    """Seeded overlapping boxes (some out of the frame, one invalid): the
+    composed index maps and their gather equal the JAX ones, and the
+    gather equals the port's plain mosaic."""
+    rng = np.random.default_rng(seed)
+    h, w = 90, 130
+    xy = rng.integers(-20, 110, (7, 2))
+    boxes = np.concatenate([xy, xy + rng.integers(1, 60, (7, 2))], 1).astype(np.int32)
+    valid = rng.random(7) > 0.15
+    frame = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    ymap, xmap = build_mosaic_maps(torch.from_numpy(boxes), torch.from_numpy(valid), h, w, level)
+    jy, jx = jax_build_maps(jnp.asarray(boxes), jnp.asarray(valid), h, w, level)
+    assert ymap.dtype == xmap.dtype == torch.int32
+    np.testing.assert_array_equal(ymap.numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(xmap.numpy(), np.asarray(jx))
+    got = apply_remap(torch.from_numpy(frame), ymap, xmap).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_apply_remap(jnp.asarray(frame), jy, jx)))
+    np.testing.assert_array_equal(got, _port(frame[None], boxes[None], valid[None], level)[0])
 
 
 def test_minimum_height_and_spill_clip_vs_cv2():

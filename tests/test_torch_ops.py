@@ -38,6 +38,15 @@ def test_anchors_exact(hw):
     )
 
 
+@pytest.mark.parametrize("hw", [(640, 640), (1280, 1280), (96, 160)])
+def test_num_anchors_matches_jax_and_the_anchors(hw):
+    n = anchors.num_anchors(hw)
+    assert n == jax_anchors.num_anchors(hw) == anchors.generate_anchors(hw).shape[0]
+    small = ((16,), (64,), (256,))
+    assert anchors.num_anchors(hw, small, (8, 16, 32)) == jax_anchors.num_anchors(
+        hw, small, (8, 16, 32))
+
+
 def test_decode_iou_and_correction_match():
     rng = np.random.default_rng(0)
     priors = jax_anchors.generate_anchors((128, 128))
@@ -166,3 +175,20 @@ def test_float_letterbox_and_preprocess_match():
     assert image.letterbox_params((1080, 1920), (640, 640)) == jax_image.letterbox_params(
         (1080, 1920), (640, 640)
     )
+
+
+@pytest.mark.parametrize("formula", ["scalar", "simd"])
+@pytest.mark.parametrize("src", [(1080, 1920), (100, 313)])
+def test_letterbox_device_exact_bitwise_vs_jax(src, formula):
+    """The float32 cv2-exact letterbox, both rounding formulas; "auto"
+    takes it with the installed cv2's formula."""
+    frames = np.random.default_rng(src[1]).integers(0, 256, (2, *src, 3), dtype=np.uint8)
+    got = image.letterbox_device_exact(T(frames), (640, 640), formula=formula)
+    want = np.asarray(
+        jax_image.letterbox_device_exact(jnp.asarray(frames), (640, 640), formula=formula))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    cv2_formula = image.letterbox_canvas_formula(src, (640, 640))
+    if cv2_formula == formula:
+        np.testing.assert_array_equal(
+            image.letterbox_device_auto(T(frames), (640, 640)).numpy(), want)

@@ -37,6 +37,7 @@ from video_desensitization_tpu.record.reader import RecordReader as JaxRecordRea
 from video_desensitization_tpu.record.repack import write_allH265_record_all as jax_repack
 from video_desensitization_tpu.record.unpack import read_record2h265_all as jax_unpack
 from video_desensitization_tpu.record.writer import RecordWriter as JaxRecordWriter
+from video_desensitization_tpu.video import nal as jax_nal
 
 from video_desensitization_torch.api.config import load_config
 from video_desensitization_torch.cli.main import main
@@ -55,6 +56,7 @@ from video_desensitization_torch.record.topics import CAMERA_TOPICS, COMPRESSED_
 from video_desensitization_torch.record.unpack import read_record2h265_all
 from video_desensitization_torch.record.writer import RecordWriter
 from video_desensitization_torch.video import av
+from video_desensitization_torch.video import nal
 from video_desensitization_torch.video.nal import is_hevc_keyframe
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
@@ -486,3 +488,44 @@ if __name__ == "__main__":
     if not av.native_available():
         sys.exit(f"the fixture needs the native libav layer: {av.codec_path()}")
     print(build_fixture_record(), os.path.getsize(FIXTURE_1080P), "bytes")
+
+
+def _annex_b(rng, header_bytes):
+    """An Annex-B access unit: each NAL header after a 3- or 4-byte start
+    code, then a few seeded payload bytes."""
+    out = bytearray()
+    for header in header_bytes:
+        out += b"\x00\x00\x00\x01" if rng.random() < 0.5 else b"\x00\x00\x01"
+        out += bytes(header) + bytes(rng.integers(1, 256, int(rng.integers(1, 9)), dtype=np.uint8))
+    return bytes(out)
+
+
+# NAL headers: H.264 is one byte (type in bits 0-4), HEVC two (type in bits 1-6).
+H264_UNITS = {"sps_pps_idr": [[0x67], [0x68], [0x65]], "non_idr": [[0x41]],
+              "sps_pps_only": [[0x67], [0x68]], "sei_then_idr": [[0x06], [0x25]]}
+HEVC_UNITS = {"vps_sps_pps_idr": [[0x40, 1], [0x42, 1], [0x44, 1], [0x26, 1]],
+              "trail": [[0x02, 1]], "cra": [[0x2A, 1]], "params_only": [[0x40, 1], [0x42, 1]]}
+
+
+@pytest.mark.parametrize("name", sorted(H264_UNITS) + sorted(HEVC_UNITS))
+def test_keyframe_tests_match_jax(name):
+    """``is_keyframe`` under every codec name and ``is_h264_keyframe`` on
+    seeded payloads with IDR, non-IDR and parameter-set NAL units."""
+    units = H264_UNITS.get(name) or HEVC_UNITS[name]
+    payload = _annex_b(np.random.default_rng(len(name)), units)
+    assert nal.is_h264_keyframe(payload) == jax_nal.is_h264_keyframe(payload)
+    for codec in ("hevc", "h265", "h264", "avc"):
+        assert nal.is_keyframe(payload, codec) == jax_nal.is_keyframe(payload, codec)
+    assert nal.is_keyframe(payload) == jax_nal.is_keyframe(payload)
+    key = name in ("sps_pps_idr", "sei_then_idr", "vps_sps_pps_idr", "cra")
+    assert nal.is_keyframe(payload, "h264" if name in H264_UNITS else "hevc") == key
+
+
+def test_keyframe_constants_and_unknown_codec_match_jax():
+    for name in ("HEVC_IRAP_TYPES", "HEVC_IDR_TYPES", "HEVC_PARAM_TYPES", "H264_IDR", "H264_PARAM"):
+        assert getattr(nal, name) == getattr(jax_nal, name)
+    with pytest.raises(ValueError) as want:
+        jax_nal.is_keyframe(b"", "vp9")
+    with pytest.raises(ValueError) as got:
+        nal.is_keyframe(b"", "vp9")
+    assert str(got.value) == str(want.value)

@@ -58,6 +58,12 @@ class Retinaface:
         "mesh": None,
     }
 
+    @classmethod
+    def get_defaults(cls, n):
+        """The default of option ``n``, else the reference's message for an
+        unknown name (returned, not raised)."""
+        return cls._defaults.get(n, f"Unrecognized attribute name '{n}'")
+
     def __init__(
         self,
         state_dict: Optional[Mapping[str, torch.Tensor]] = None,

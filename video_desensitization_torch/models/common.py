@@ -13,11 +13,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from video_desensitization_torch.models.convert import (
-    from_jax_variables,
-    load_torch_checkpoint,
-    load_variables,
-)
 from video_desensitization_torch.parallel.tensor import all_reduce_sum
 
 BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
@@ -137,7 +132,23 @@ def load_weights(net: nn.Module, state_dict, model_path, seed: int) -> None:
     """A given state_dict, else the checkpoint at ``model_path`` (a reference
     ``.pth``/``.pt`` state_dict, any other path the JAX package's msgpack
     variables, as its detectors read them), else random weights from
-    ``torch.Generator().manual_seed(seed)``."""
+    ``torch.Generator().manual_seed(seed)``.
+
+    A state_dict is taken under the JAX converters' key rules
+    (``convert.reference_state_dict``: ``body.fc.*`` and
+    ``num_batches_tracked`` skipped, a key outside the network's layout
+    refused with their ``ValueError``); a key of ``net`` that it lacks
+    raises ``ValueError("Missing checkpoint keys: [...]")``."""
+    # Imported here: the package's __init__ imports this module, and
+    # ``python -m ...models.convert`` must find the converter not yet imported.
+    from video_desensitization_torch.models.convert import (
+        from_jax_variables,
+        load_torch_checkpoint,
+        load_variables,
+        reference_state_dict,
+        unmapped_keys_error,
+    )
+
     if state_dict is None and model_path is not None:
         if str(model_path).endswith((".pth", ".pt")):
             state_dict = load_torch_checkpoint(model_path)
@@ -145,5 +156,11 @@ def load_weights(net: nn.Module, state_dict, model_path, seed: int) -> None:
             state_dict = from_jax_variables(load_variables(model_path))
     if state_dict is None:
         init_weights(net, torch.Generator().manual_seed(seed))
-    else:
-        net.load_state_dict(state_dict)
+        return
+    yolo = any(k.startswith("model.") for k in net.state_dict())
+    result = net.load_state_dict(reference_state_dict(state_dict, yolo), strict=False)
+    if result.unexpected_keys:
+        raise unmapped_keys_error(result.unexpected_keys, yolo)
+    missing = [k for k in result.missing_keys if not k.endswith(".num_batches_tracked")]
+    if missing:
+        raise ValueError(f"Missing checkpoint keys: {missing[:10]}")

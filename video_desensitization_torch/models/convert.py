@@ -1,13 +1,18 @@
-"""Weights between the JAX package's Flax variables and this port.
+"""Weights between reference checkpoints, the JAX package's Flax variables
+and this port.
 
 The port's modules carry the reference torch checkpoints' names, so a
-reference ``.pth``/``.pt`` state_dict loads with ``load_state_dict`` as it
-is (``load_torch_checkpoint``). ``from_jax_variables`` turns the JAX
-package's ``{"params", "batch_stats"}`` tree (numpy arrays) into such a
-state_dict, for RetinaFace (resnet50 or mobilenet) and YOLOv8 alike:
-conv kernels go from (kh, kw, I, O) to (O, I, kh, kw), BN scale/bias/mean/var
-become weight/bias/running_mean/running_var. ``to_jax_variables`` is the
-way back.
+reference ``.pth``/``.pt`` state_dict loads as it is once
+``reference_state_dict`` has applied the JAX converters' key rules (a
+``module.`` prefix dropped, ``body.fc.*`` and ``num_batches_tracked``
+skipped, any other key outside the network's layout refused).
+``from_jax_variables`` turns the JAX package's ``{"params", "batch_stats"}``
+tree (numpy arrays) into such a state_dict, for RetinaFace (resnet50 or
+mobilenet) and YOLOv8 alike: conv kernels go from (kh, kw, I, O) to
+(O, I, kh, kw), BN scale/bias/mean/var become
+weight/bias/running_mean/running_var. ``to_jax_variables`` is the way back,
+and ``convert_retinaface_state_dict`` / ``convert_yolo_state_dict`` give the
+JAX converters' trees from a reference checkpoint.
 
 ``save_variables`` / ``load_variables`` write and read that tree as the
 JAX package's ``.msgpack`` files (``flax.serialization.msgpack_serialize``)
@@ -15,13 +20,19 @@ with a codec of their own, no Flax and no ``msgpack`` package: it reads
 the subset Flax writes (maps, arrays, strings, ints, floats, ``bin``, ext
 type 1, an ndarray as a packed ``(shape, dtype name, bytes)``, and ext
 type 3, a numpy scalar packed the same way) and writes maps of arrays.
+
+The offline converter (``main``) reads a reference checkpoint and writes
+that msgpack file:
+
+    python -m video_desensitization_torch.models.convert \
+        Retinaface_resnet50.pth face.msgpack [--arch retinaface|yolo]
 """
 
 from __future__ import annotations
 
 import re
 import struct
-from typing import Any, Dict, Iterator, List, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -152,17 +163,78 @@ def _yolo_path(name: str) -> Tuple[str, ...]:
     return tuple(path)
 
 
-def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+# Every module a reference checkpoint of each network holds, under its
+# torch name, and the leaves of a conv or BN module.
+_RETINAFACE_MODULE = re.compile(
+    r"body\.(conv1|bn1|layer[1-4]\.\d+\.(conv[1-3]|bn[1-3]|downsample\.[01])"
+    r"|stage[1-3]\.\d+\.[0134])"
+    r"|fpn\.(output[1-3]|merge[12])\.[01]"
+    r"|ssh[1-3]\.(conv3X3|conv5X5_[12]|conv7X7_2|conv7x7_3)\.[01]"
+    r"|(Class|Bbox|Landmark)Head\.\d+\.conv1x1"
+)
+_YOLO_MODULE = re.compile(
+    r"model\.((0|1|3|5|7|16|19)\.(conv|bn)"
+    r"|(2|4|6|8|9|12|15|18|21)\.(m\.\d+\.)?cv[12]\.(conv|bn)"
+    r"|22\.cv[23]\.\d+\.([01]\.(conv|bn)|2)"
+    r"|22\.dfl\.conv)"
+)
+_LEAVES = ("weight", "bias", "running_mean", "running_var")
+# A torchvision ResNet-50's classifier, which RetinaFace never runs.
+_RETINAFACE_DROPPED = ("body.fc.weight", "body.fc.bias")
+
+
+def _unprefixed(key: str) -> str:
+    """A DataParallel checkpoint's key without its ``module.`` prefix."""
+    return key[len("module."):] if key.startswith("module.") else key
+
+
+def reference_state_dict(state_dict: Mapping[str, Any], yolo: bool) -> Dict[str, torch.Tensor]:
+    """A reference state_dict of RetinaFace (``yolo`` false) or YOLOv8 under
+    the JAX converters' key rules, as tensors (numpy values are taken too).
+
+    A ``module.`` prefix is dropped; ``body.fc.weight`` and ``body.fc.bias``
+    (RetinaFace) and every ``num_batches_tracked`` are skipped; any other key
+    outside the network's layout raises ``ValueError("Unmapped checkpoint
+    keys: [...]")`` (YOLO: ``"Unmapped YOLO keys: [...]"``) with the first
+    ten, as the JAX converters do. The loader and the converter both take
+    their keys from here."""
+    module_re = _YOLO_MODULE if yolo else _RETINAFACE_MODULE
+    out: Dict[str, torch.Tensor] = {}
+    unmapped = []
+    for key, value in state_dict.items():
+        k = _unprefixed(key)
+        if k.endswith(".num_batches_tracked") or (not yolo and k in _RETINAFACE_DROPPED):
+            continue
+        module, _, leaf = k.rpartition(".")
+        if leaf not in _LEAVES or not module_re.fullmatch(module):
+            unmapped.append(k)
+            continue
+        out[k] = value if torch.is_tensor(value) else torch.from_numpy(np.array(value))
+    if unmapped:
+        raise unmapped_keys_error(unmapped, yolo)
+    return out
+
+
+def unmapped_keys_error(keys, yolo: bool) -> ValueError:
+    """The JAX converters' error for keys they cannot map (the first ten)."""
+    return ValueError(f"Unmapped {'YOLO' if yolo else 'checkpoint'} keys: {list(keys)[:10]}")
+
+
+def to_jax_variables(state_dict: Mapping[str, Any], yolo: Optional[bool] = None) -> Dict[str, Dict]:
     """A port (or reference) state_dict of RetinaFace or YoloV8 -> the JAX
-    package's ``{"params", "batch_stats"}`` tree of numpy arrays."""
-    yolo = any(k.startswith("model.") for k in state_dict)
+    package's ``{"params", "batch_stats"}`` tree of float32 numpy arrays.
+    The keys are taken under ``reference_state_dict``'s rules; ``yolo``
+    defaults to whether a key starts with ``model.``."""
+    if yolo is None:
+        yolo = any(_unprefixed(k).startswith("model.") for k in state_dict)
+    state = reference_state_dict(state_dict, yolo)
     module_path = _yolo_path if yolo else _retinaface_path
-    bn_modules = {k.rsplit(".", 1)[0] for k in state_dict if k.endswith(".running_mean")}
+    bn_modules = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     bn_leaf = {v: k for k, v in _BN_LEAVES.items()}
-    for key, value in state_dict.items():
+    for key, value in state.items():
         module, leaf = key.rsplit(".", 1)
-        if leaf == "num_batches_tracked" or ".dfl." in key:
+        if ".dfl." in key:
             continue
         arr = value.detach().cpu().to(torch.float32).numpy()
         if module in bn_modules:
@@ -179,13 +251,26 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
     return out
 
 
+def convert_retinaface_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Dict]:
+    """A reference RetinaFace state_dict (resnet50 or mobilenet layout) ->
+    the JAX package's variables, as its converter of the same name gives
+    them."""
+    return to_jax_variables(state_dict, yolo=False)
+
+
+def convert_yolo_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Dict]:
+    """An ultralytics YOLOv8 state_dict -> the JAX package's variables (the
+    DFL projection is fixed and left out, as there)."""
+    return to_jax_variables(state_dict, yolo=True)
+
+
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """Read a reference ``.pth``/``.pt`` state_dict (on the CPU), dropping
-    a ``module.`` prefix from DataParallel checkpoints."""
+    """Read a reference ``.pth``/``.pt`` state_dict (on the CPU); a
+    checkpoint that wraps it under ``state_dict`` is unwrapped."""
     obj = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
-    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in obj.items()}
+    return dict(obj)
 
 
 # -- msgpack, as flax.serialization writes it ----------------------------------
@@ -317,3 +402,33 @@ def load_variables(path: str) -> Dict:
     if reader.pos != len(data):
         raise ValueError(f"{path}: trailing bytes after the msgpack object")
     return tree
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """The offline converter: a reference ``.pth``/``.pt`` checkpoint ->
+    the JAX package's msgpack variables file, which ``Retinaface`` /
+    ``PlateDetector`` (``model_path``) of either package load. It works on
+    the CPU and touches no device."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="torch checkpoint -> Flax msgpack")
+    p.add_argument("src", help=".pth/.pt torch checkpoint")
+    p.add_argument("dst", help="output .msgpack path")
+    p.add_argument("--arch", choices=("retinaface", "yolo"), default="retinaface")
+    args = p.parse_args(argv)
+
+    state = load_torch_checkpoint(args.src)
+    if args.arch == "retinaface":
+        variables = convert_retinaface_state_dict(state)
+    else:
+        variables = convert_yolo_state_dict(state)
+    save_variables(variables, args.dst)
+    n = sum(v.size for _, v in _leaves(variables))
+    print(f"wrote {args.dst}: {n:,} parameters")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main(sys.argv[1:]))

@@ -27,6 +27,18 @@ def feature_map_shapes(
     return tuple((math.ceil(h / s), math.ceil(w / s)) for s in steps)
 
 
+def num_anchors(
+    image_size: Tuple[int, int],
+    min_sizes: Sequence[Sequence[int]] = DEFAULT_MIN_SIZES,
+    steps: Sequence[int] = DEFAULT_STEPS,
+) -> int:
+    """Total prior count for an (height, width) input."""
+    return sum(
+        fh * fw * len(ms)
+        for (fh, fw), ms in zip(feature_map_shapes(image_size, steps), min_sizes)
+    )
+
+
 @lru_cache(maxsize=16)
 def _generate_anchors_cached(
     image_size: Tuple[int, int],

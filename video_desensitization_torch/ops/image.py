@@ -193,6 +193,21 @@ def resize_linear_cv2_exact(
     return torch.clamp(out, 0, 255).to(torch.uint8)
 
 
+def letterbox_device_exact(
+    frames: torch.Tensor,
+    dst_hw: Tuple[int, int],
+    pad_value: float = PAD_VALUE,
+    formula: str = "scalar",
+) -> torch.Tensor:
+    """Float32 letterbox with the cv2-exact integer resize: bitwise
+    ``letterbox_host`` when ``formula`` is ``cv2_resize_formula``'s verdict
+    for the content resize."""
+    _, ih, iw, _ = frames.shape
+    nh, nw, top, left = letterbox_params((ih, iw), dst_hw)
+    resized = resize_linear_cv2_exact(frames, (nh, nw), formula).to(torch.float32)
+    return _pad_canvas(resized, dst_hw, top, left, pad_value)
+
+
 def letterbox_canvas_u8(
     frames: torch.Tensor,
     dst_hw: Tuple[int, int],
@@ -234,9 +249,7 @@ def letterbox_device_auto(
         formula = letterbox_canvas_formula((ih, iw), dst_hw)
     if formula is None:
         return letterbox_device(frames, dst_hw, pad_value=pad_value)
-    nh, nw, top, left = letterbox_params((ih, iw), dst_hw)
-    resized = resize_linear_cv2_exact(frames, (nh, nw), formula).to(torch.float32)
-    return _pad_canvas(resized, dst_hw, top, left, pad_value)
+    return letterbox_device_exact(frames, dst_hw, pad_value, formula)
 
 
 def preprocess_batch_device(

@@ -105,6 +105,29 @@ def mosaic_boxes_batch(
     return mosaic_boxes_batch_(frames.clone(), boxes, valid, level)
 
 
+def build_mosaic_maps(
+    boxes: torch.Tensor,
+    valid: torch.Tensor,
+    height: int,
+    width: int,
+    level: int = DEFAULT_MOSAIC_LEVEL,
+):
+    """(ymap, xmap), each (H, W) int32, such that ``frame[ymap, xmap]`` is
+    the mosaic of every valid box of (K, 4) int xyxy ``boxes`` ((K,) bool
+    ``valid``), in box order: the plain mosaic applied to the identity
+    maps. Not on the engine's path, which runs the CUDA kernel."""
+    ys = torch.arange(height, dtype=torch.int32, device=boxes.device)[:, None]
+    xs = torch.arange(width, dtype=torch.int32, device=boxes.device)[None, :]
+    maps = torch.stack(torch.broadcast_tensors(ys, xs), dim=-1)[None]
+    mosaic_boxes_batch_(maps, boxes[None], valid[None], level)
+    return maps[0, ..., 0], maps[0, ..., 1]
+
+
+def apply_remap(frame: torch.Tensor, ymap: torch.Tensor, xmap: torch.Tensor) -> torch.Tensor:
+    """Gather an (H, W, C) frame through (H, W) index maps."""
+    return frame[ymap.long(), xmap.long()]
+
+
 def chroma_boxes(boxes: torch.Tensor) -> torch.Tensor:
     """Half-resolution chroma-plane boxes covering a full-resolution pixel
     box: the start floors and the end ceils, so every chroma sample whose

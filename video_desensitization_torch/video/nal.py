@@ -1,8 +1,8 @@
-"""Annex-B NAL unit parsing for H.265 elementary streams.
+"""Annex-B NAL unit parsing for H.265/H.264 elementary streams.
 
 Used for keyframe gating during record unpack and repack (the reference's
 ``is_key_frame``/``key_frame_written`` state per camera topic). The camera
-streams are HEVC, so only HEVC's keyframe test is here.
+streams are HEVC; ``is_keyframe`` also answers for H.264.
 """
 
 from __future__ import annotations
@@ -11,6 +11,11 @@ from typing import Iterator, List, Tuple
 
 # HEVC NAL unit types (nal_unit_type in [16, 21] are IRAP pictures).
 HEVC_IRAP_TYPES = frozenset(range(16, 22))  # BLA_W_LP .. CRA_NUT
+HEVC_IDR_TYPES = frozenset({19, 20})  # IDR_W_RADL, IDR_N_LP
+HEVC_PARAM_TYPES = frozenset({32, 33, 34})  # VPS, SPS, PPS
+
+H264_IDR = 5
+H264_PARAM = frozenset({7, 8})  # SPS, PPS
 
 
 def iter_nal_units(stream: bytes) -> Iterator[Tuple[int, int]]:
@@ -39,3 +44,20 @@ def is_hevc_keyframe(payload: bytes) -> bool:
         if s < len(payload) and hevc_nal_type(payload, s) in HEVC_IRAP_TYPES:
             return True
     return False
+
+
+def is_h264_keyframe(payload: bytes) -> bool:
+    """True if the access unit contains an H.264 IDR slice."""
+    for s, _ in iter_nal_units(payload):
+        if s < len(payload) and (payload[s] & 0x1F) == H264_IDR:
+            return True
+    return False
+
+
+def is_keyframe(payload: bytes, codec: str = "hevc") -> bool:
+    """The keyframe test of ``codec``: "hevc"/"h265" or "h264"/"avc"."""
+    if codec in ("hevc", "h265"):
+        return is_hevc_keyframe(payload)
+    if codec in ("h264", "avc"):
+        return is_h264_keyframe(payload)
+    raise ValueError(f"unknown codec {codec}")
