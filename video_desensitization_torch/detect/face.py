@@ -40,6 +40,7 @@ from video_desensitization_torch.parallel.mesh import (
     shard_batch,
     shard_params,
 )
+from video_desensitization_torch.utils.timers import span
 
 
 class Retinaface:
@@ -109,19 +110,20 @@ class Retinaface:
     @torch.inference_mode()
     def _detect_program(self, frames_u8: torch.Tensor, image_shapes: torch.Tensor):
         """uint8 NHWC frames -> (dets_norm, dets_px, keep), all on device."""
-        x = preprocess_batch_device(frames_u8, self.input_hw, dtype=self.dtype)
-        loc, conf, landm = self.net(x.permute(0, 3, 1, 2))
-        loc, conf, landm = loc.float(), conf.float(), landm.float()
-        boxes = decode_boxes(loc, self.anchors, self.cfg["variance"])
-        landms = decode_landmarks(landm, self.anchors, self.cfg["variance"])
-        dets = torch.cat([boxes, conf[..., 1:2], landms], dim=-1)
-        dets, keep = batched_nms_padded(
-            dets, self.confidence, self.nms_iou, self.max_detections
-        )
-        if self.letterbox_image:
-            dets = letterbox_correction(dets, self.input_hw, image_shapes)
-            dets = torch.where(keep[..., None], dets, torch.zeros_like(dets))
-        return dets, scale_to_pixels(dets, image_shapes), keep
+        with span("face.program"):
+            x = preprocess_batch_device(frames_u8, self.input_hw, dtype=self.dtype)
+            loc, conf, landm = self.net(x.permute(0, 3, 1, 2))
+            loc, conf, landm = loc.float(), conf.float(), landm.float()
+            boxes = decode_boxes(loc, self.anchors, self.cfg["variance"])
+            landms = decode_landmarks(landm, self.anchors, self.cfg["variance"])
+            dets = torch.cat([boxes, conf[..., 1:2], landms], dim=-1)
+            dets, keep = batched_nms_padded(
+                dets, self.confidence, self.nms_iou, self.max_detections
+            )
+            if self.letterbox_image:
+                dets = letterbox_correction(dets, self.input_hw, image_shapes)
+                dets = torch.where(keep[..., None], dets, torch.zeros_like(dets))
+            return dets, scale_to_pixels(dets, image_shapes), keep
 
     def detect_padded(
         self, frames_u8: np.ndarray, image_shapes: Optional[np.ndarray] = None

@@ -25,6 +25,7 @@ from video_desensitization_torch.parallel.mesh import (
     shard_batch,
     shard_params,
 )
+from video_desensitization_torch.utils.timers import span
 
 YOLO_PAD_VALUE = 114.0
 
@@ -94,17 +95,18 @@ class PlateDetector:
     def _detect_program(self, frames_u8: torch.Tensor, image_shapes: torch.Tensor):
         """uint8 NHWC frames -> padded (B, K, 6) detections in original
         pixels + keep mask."""
-        _, ih, iw, _ = frames_u8.shape
-        x = letterbox_device_auto(frames_u8, self.input_hw, pad_value=YOLO_PAD_VALUE)
-        dets, keep = self._forward_nms(x / 255.0)
-        nh, nw, top, left = letterbox_params((ih, iw), self.input_hw)
-        row = lambda *v: torch.tensor(v, dtype=torch.float32, device=dets.device)
-        boxes = _inverse_letterbox(
-            dets[..., :4], row(left, top, left, top), row(iw / nw, ih / nh).repeat(2),
-            row(iw, ih, iw, ih),
-        )
-        out = torch.cat([boxes, dets[..., 4:6]], dim=-1)
-        return torch.where(keep[..., None], out, torch.zeros_like(out)), keep
+        with span("plate.program"):
+            _, ih, iw, _ = frames_u8.shape
+            x = letterbox_device_auto(frames_u8, self.input_hw, pad_value=YOLO_PAD_VALUE)
+            dets, keep = self._forward_nms(x / 255.0)
+            nh, nw, top, left = letterbox_params((ih, iw), self.input_hw)
+            row = lambda *v: torch.tensor(v, dtype=torch.float32, device=dets.device)
+            boxes = _inverse_letterbox(
+                dets[..., :4], row(left, top, left, top), row(iw / nw, ih / nh).repeat(2),
+                row(iw, ih, iw, ih),
+            )
+            out = torch.cat([boxes, dets[..., 4:6]], dim=-1)
+            return torch.where(keep[..., None], out, torch.zeros_like(out)), keep
 
     @torch.inference_mode()
     def _detect_letterboxed_program(
@@ -121,26 +123,27 @@ class PlateDetector:
         float32 [nh, nw, top, left] computed on the host (float32 on the
         device can place the content one pixel off for some heights).
         """
-        h, w = self.input_hw
-        dev = lb_frames_u8.device
-        oh, ow = image_shapes[:, 0:1], image_shapes[:, 1:2]
-        nh, nw, top, left = (lb_geom[:, i : i + 1, None] for i in range(4))
-        ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
-        xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
-        inside = (ys >= top) & (ys < top + nh) & (xs >= left) & (xs < left + nw)
-        pad = torch.tensor(int(YOLO_PAD_VALUE), dtype=torch.uint8, device=dev)
-        x = torch.where(inside[..., None], lb_frames_u8, pad)
-        dets, keep = self._forward_nms(x.to(torch.float32) / 255.0)
-        gain_x = ow / torch.clamp(nw[..., 0], min=1.0)
-        gain_y = oh / torch.clamp(nh[..., 0], min=1.0)
-        boxes = _inverse_letterbox(
-            dets[..., :4],
-            torch.cat([left, top, left, top], dim=-1),
-            torch.cat([gain_x, gain_y, gain_x, gain_y], dim=-1)[:, None, :],
-            torch.cat([ow, oh, ow, oh], dim=-1)[:, None, :],
-        )
-        out = torch.cat([boxes, dets[..., 4:6]], dim=-1)
-        return torch.where(keep[..., None], out, torch.zeros_like(out)), keep
+        with span("plate.program"):
+            h, w = self.input_hw
+            dev = lb_frames_u8.device
+            oh, ow = image_shapes[:, 0:1], image_shapes[:, 1:2]
+            nh, nw, top, left = (lb_geom[:, i : i + 1, None] for i in range(4))
+            ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+            xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+            inside = (ys >= top) & (ys < top + nh) & (xs >= left) & (xs < left + nw)
+            pad = torch.tensor(int(YOLO_PAD_VALUE), dtype=torch.uint8, device=dev)
+            x = torch.where(inside[..., None], lb_frames_u8, pad)
+            dets, keep = self._forward_nms(x.to(torch.float32) / 255.0)
+            gain_x = ow / torch.clamp(nw[..., 0], min=1.0)
+            gain_y = oh / torch.clamp(nh[..., 0], min=1.0)
+            boxes = _inverse_letterbox(
+                dets[..., :4],
+                torch.cat([left, top, left, top], dim=-1),
+                torch.cat([gain_x, gain_y, gain_x, gain_y], dim=-1)[:, None, :],
+                torch.cat([ow, oh, ow, oh], dim=-1)[:, None, :],
+            )
+            out = torch.cat([boxes, dets[..., 4:6]], dim=-1)
+            return torch.where(keep[..., None], out, torch.zeros_like(out)), keep
 
     def detect_padded(self, frames_u8: np.ndarray):
         """(B, H, W, 3) uint8 -> (dets (B, K, 6), keep (B, K)) on the device."""

@@ -9,7 +9,8 @@
    answer after (suppression-chain depth + 1) rounds.
 
 Each round's convergence test reads one flag on the host, so on CUDA every
-round costs one device-to-host synchronisation.
+round costs one device-to-host synchronisation; each read is a
+``nms.flag_read`` span (``utils/timers.py::span``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Tuple
 import torch
 
 from video_desensitization_torch.ops.boxes import pairwise_iou
+from video_desensitization_torch.utils.timers import span
 
 
 def batched_nms_padded(
@@ -47,7 +49,9 @@ def batched_nms_padded(
 
     keep, prev = valid, ~valid
     for _ in range(k):
-        if not bool(torch.any(keep != prev)):
+        with span("nms.flag_read"):
+            changed = bool(torch.any(keep != prev))
+        if not changed:
             break
         suppressed = torch.any(sup_mat & keep[:, :, None], dim=1)
         keep, prev = valid & ~suppressed, keep

@@ -48,6 +48,7 @@ from video_desensitization_torch.ops.mosaic import (
 )
 from video_desensitization_torch.ops.yuv import i420_to_rgb_u8
 from video_desensitization_torch.parallel.mesh import device_guard, pad_batch_to_devices
+from video_desensitization_torch.utils.timers import span
 
 
 @dataclasses.dataclass
@@ -121,15 +122,16 @@ class DesensitizationEngine:
             frames_u8 = frames
         b, h, w, _ = frames_u8.shape
         canvas = None
-        if self.share_letterbox and (plate is None or plate.input_hw == face.input_hw):
-            formula = letterbox_canvas_formula((h, w), face.input_hw)
-            if formula is not None:
-                canvas = letterbox_canvas_u8(frames_u8, face.input_hw, formula=formula)
-                lb_geom = torch.tensor(
-                    letterbox_params((h, w), face.input_hw),
-                    dtype=torch.float32, device=frames_u8.device,
-                ).expand(b, 4)
-                self.last_letterbox = f"shared-{formula}"
+        with span("engine.letterbox"):
+            if self.share_letterbox and (plate is None or plate.input_hw == face.input_hw):
+                formula = letterbox_canvas_formula((h, w), face.input_hw)
+                if formula is not None:
+                    canvas = letterbox_canvas_u8(frames_u8, face.input_hw, formula=formula)
+                    lb_geom = torch.tensor(
+                        letterbox_params((h, w), face.input_hw),
+                        dtype=torch.float32, device=frames_u8.device,
+                    ).expand(b, 4)
+                    self.last_letterbox = f"shared-{formula}"
         if canvas is None:
             self.last_letterbox = "per-detector-float"
         # On the shared canvas the face letterbox is the identity geometry,
@@ -137,7 +139,6 @@ class DesensitizationEngine:
         # still maps boxes back through image_shapes.
         face_in = canvas if canvas is not None else frames_u8
         _, face_px, face_keep = face._detect_program(face_in, image_shapes)
-        fboxes = face_px[..., :4].to(torch.int32)
         if plate is not None:
             if canvas is not None:
                 plate_px, plate_keep = plate._detect_letterboxed_program(
@@ -145,21 +146,25 @@ class DesensitizationEngine:
                 )
             else:
                 plate_px, plate_keep = plate._detect_program(frames_u8, image_shapes)
-            boxes = torch.cat([fboxes, plate_px[..., :4].to(torch.int32)], dim=1)
-            valid = torch.cat([face_keep, plate_keep], dim=1)
-        else:
-            plate_px = torch.zeros((b, 1, 6), dtype=torch.float32, device=frames_u8.device)
-            plate_keep = torch.zeros((b, 1), dtype=torch.bool, device=frames_u8.device)
-            boxes, valid = fboxes, face_keep
-        level = self.mosaic_level
-        if yuv and self.anonymizer == "gaussian":
-            frames.copy_(mosaic_i420_batch(frames, boxes, valid, level, plane_fn=_gaussian_plane(level)))
-        elif yuv:
-            mosaic_i420_batch_cuda_(frames, boxes, valid, level)
-        elif self.anonymizer == "gaussian":
-            frames.copy_(gaussian_blur_boxes(frames, boxes, valid))
-        else:
-            mosaic_boxes_batch_cuda_(frames, boxes, valid, level)
+        with span("engine.mosaic"):
+            fboxes = face_px[..., :4].to(torch.int32)
+            if plate is not None:
+                boxes = torch.cat([fboxes, plate_px[..., :4].to(torch.int32)], dim=1)
+                valid = torch.cat([face_keep, plate_keep], dim=1)
+            else:
+                plate_px = torch.zeros((b, 1, 6), dtype=torch.float32, device=frames_u8.device)
+                plate_keep = torch.zeros((b, 1), dtype=torch.bool, device=frames_u8.device)
+                boxes, valid = fboxes, face_keep
+            level = self.mosaic_level
+            if yuv and self.anonymizer == "gaussian":
+                frames.copy_(mosaic_i420_batch(frames, boxes, valid, level,
+                                               plane_fn=_gaussian_plane(level)))
+            elif yuv:
+                mosaic_i420_batch_cuda_(frames, boxes, valid, level)
+            elif self.anonymizer == "gaussian":
+                frames.copy_(gaussian_blur_boxes(frames, boxes, valid))
+            else:
+                mosaic_boxes_batch_cuda_(frames, boxes, valid, level)
         return frames, face_px, face_keep, plate_px, plate_keep
 
     def dispatch_batch(
@@ -174,24 +179,30 @@ class DesensitizationEngine:
         turn, each with its device current.
         """
         image_shapes = self._image_shapes(frames, image_shapes)
-        frames = np.ascontiguousarray(frames, dtype=np.uint8)
         if self._shards is not None:
-            return self._dispatch_shards(frames, image_shapes)
+            return self._dispatch_shards(np.ascontiguousarray(frames, dtype=np.uint8), image_shapes)
         shapes = torch.as_tensor(np.asarray(image_shapes, np.float32))
+        with span("engine.stage_in"):
+            frames = np.ascontiguousarray(frames, dtype=np.uint8)
+            if self._stream is None:
+                host_in = torch.from_numpy(frames.copy())
+            else:
+                host_in = torch.from_numpy(frames).pin_memory()
+                shapes = shapes.pin_memory()
         if self._stream is None:
-            return self.program(torch.from_numpy(frames.copy()), shapes), None
-        host_in = torch.from_numpy(frames).pin_memory()
+            return self.program(host_in, shapes), None
         with torch.cuda.stream(self._stream):
             dev_frames = host_in.to(self.device, non_blocking=True)
-            dev_shapes = shapes.pin_memory().to(self.device, non_blocking=True)
+            dev_shapes = shapes.to(self.device, non_blocking=True)
             outputs = self.program(dev_frames, dev_shapes)
-            host_out = []
-            for t in outputs:
-                pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                pinned.copy_(t, non_blocking=True)
-                host_out.append(pinned)
-            done = torch.cuda.Event()
-            done.record(self._stream)
+            with span("engine.stage_out"):
+                host_out = []
+                for t in outputs:
+                    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    pinned.copy_(t, non_blocking=True)
+                    host_out.append(pinned)
+                done = torch.cuda.Event()
+                done.record(self._stream)
         # host_in stays referenced until finalize, after its copy completed.
         return host_out, (done, host_in)
 
@@ -242,9 +253,11 @@ class DesensitizationEngine:
             return self._finalize_shards(handle)
         outputs, pending = handle
         if pending is not None:
-            pending[0].synchronize()
-        blurred, face_px, face_keep, plate_px, plate_keep = (t.numpy() for t in outputs)
-        return _gather_result(blurred, face_px, face_keep, plate_px, plate_keep)
+            with span("engine.wait"):
+                pending[0].synchronize()
+        with span("engine.gather"):
+            blurred, face_px, face_keep, plate_px, plate_keep = (t.numpy() for t in outputs)
+            return _gather_result(blurred, face_px, face_keep, plate_px, plate_keep)
 
     def _finalize_shards(self, handle: "_ShardedHandle") -> EngineResult:
         """Each shard's result in order, joined and cut to the caller's

@@ -28,7 +28,7 @@ import numpy as np
 
 from video_desensitization_torch.pipeline.engine import DesensitizationEngine
 from video_desensitization_torch.utils.logging import get_logger
-from video_desensitization_torch.utils.timers import StageTimer
+from video_desensitization_torch.utils.timers import StageTimer, activate
 from video_desensitization_torch.video.av import (
     HEVC_DEFAULTS,
     I420UnsupportedError,
@@ -256,16 +256,19 @@ def _run_device_stage(engine, in_q, out_q, stats, timer):
         with timer.stage("wait_encode"):
             out_q.put(res.frames)
 
-    try:
-        while True:
-            with timer.stage("wait_decode"):
-                batch = in_q.get()
-            if batch is _SENTINEL:
-                break
-            with timer.stage("dispatch"):
-                pending.append((batch.shape[0], engine.dispatch_batch(batch)))
-            if len(pending) > depth:
+    # The engine's own spans (utils/timers.py::span) go on a child timer,
+    # current on this thread for the whole stage.
+    with activate(timer.child()):
+        try:
+            while True:
+                with timer.stage("wait_decode"):
+                    batch = in_q.get()
+                if batch is _SENTINEL:
+                    break
+                with timer.stage("dispatch"):
+                    pending.append((batch.shape[0], engine.dispatch_batch(batch)))
+                if len(pending) > depth:
+                    _finish_one()
+        finally:
+            while pending:
                 _finish_one()
-    finally:
-        while pending:
-            _finish_one()

@@ -10,19 +10,17 @@ frames per batch (8 random 1620x1920 I420 frames through
     included), each result dropped before the next batch;
   * ``e2e_fps_results_held``: the same with every result kept, as a caller
     collecting a job's output does;
-  * ``stage_ms``: each stage of the program alone, CUDA-event median of
-    one call each, except ``mosaic_kernel_device``: the mosaic's device
-    time alone (``torch.profiler`` over 50 calls), since one event pair
-    around a call of tens of microseconds holds the host's gap before the
-    launch;
+  * ``stage_ms`` and ``spans_per_batch``: the program's own spans
+    (``utils/timers.py::span``) over ``--batches`` calls of
+    ``process_batch``, each waiting for its batch: host ms a batch and
+    spans a batch of each (``nms.flag_read``: the NMS rounds' host syncs);
   * ``host_syncs_per_batch``: synchronising calls in one ``process_batch``
     (CUDA sync debug mode), which the NMS fixpoint rounds dominate;
   * ``device_busy_share`` and the top kernels by device time from
     ``torch.profiler`` over a few batches, or "not measured" when the
     profiler reports no device time.
-With ``--yuv`` the stages are the I420 path's (``h2d_i420``,
-``i420_to_rgb``, the two mosaic calls' device time, ``d2h_i420``), the RGB
-path's host syncs stand beside the I420 path's
+With ``--yuv`` the spans are the I420 path's (``process_batch_yuv``), the
+RGB path's host syncs stand beside the I420 path's
 (``rgb_host_syncs_per_batch``), and ``alternating_fps_results_held`` holds
 the frames/s of ``ALTERNATING_ROUNDS`` windows of each path, results held,
 taken in turns (RGB first in even rounds, I420 first in odd ones), with
@@ -43,92 +41,25 @@ import warnings
 import numpy as np
 import torch
 
-from video_desensitization_torch.bench_util import (
-    cuda_time_ms,
-    device_time_us,
-    engine_fps,
-    main_path_engine,
-    profiled_device_ms,
-)
+from video_desensitization_torch.bench_util import device_time_us, engine_fps, main_path_engine
+from video_desensitization_torch.utils.timers import StageTimer, activate
 
 BATCH, HEIGHT, WIDTH = 8, 1080, 1920
 ALTERNATING_ROUNDS = 5
 
 
-@torch.inference_mode()
-def stage_times(engine, frames_np):
-    from video_desensitization_torch.ops.boxes import decode_boxes, decode_landmarks
-    from video_desensitization_torch.ops.cuda_mosaic import mosaic_boxes_batch_cuda_
-    from video_desensitization_torch.ops.image import (
-        letterbox_canvas_formula,
-        letterbox_canvas_u8,
-        letterbox_params,
-        preprocess_batch_device,
-    )
-    from video_desensitization_torch.ops.nms import batched_nms_padded
-
-    face, plate = engine.face, engine.plate
-    hw = face.input_hw
-    pinned = torch.from_numpy(frames_np).pin_memory()
-    frames = pinned.cuda()
-    shapes = torch.tensor([[HEIGHT, WIDTH]] * BATCH, dtype=torch.float32, device="cuda")
-    formula = letterbox_canvas_formula((HEIGHT, WIDTH), hw)
-    canvas = letterbox_canvas_u8(frames, hw, formula=formula)
-    geom = torch.tensor(letterbox_params((HEIGHT, WIDTH), hw), dtype=torch.float32,
-                        device="cuda").expand(BATCH, 4)
-    x = preprocess_batch_device(canvas, hw, dtype=face.dtype).permute(0, 3, 1, 2)
-    loc, conf, landm = face.net(x)
-    dets = torch.cat([
-        decode_boxes(loc.float(), face.anchors),
-        conf[..., 1:2].float(),
-        decode_landmarks(landm.float(), face.anchors),
-    ], -1)
-    _, face_px, face_keep = face._detect_program(canvas, shapes)
-    plate_px, plate_keep = plate._detect_letterboxed_program(canvas, shapes, geom)
-    boxes = torch.cat([face_px[..., :4], plate_px[..., :4]], 1).to(torch.int32)
-    valid = torch.cat([face_keep, plate_keep], 1)
-    work = frames.clone()
-    host = torch.empty_like(pinned).pin_memory()
+def span_ms(process, frames_np, batches: int) -> dict:
+    """The program's own spans (``utils/timers.py::span``: the engine's
+    stage-in, letterbox, detector programs, NMS reads, mosaic, stage-out,
+    wait and gather) over ``batches`` calls of ``process`` under an
+    activated timer: host ms a batch and spans a batch of each."""
+    timer = StageTimer()
+    with activate(timer):
+        for _ in range(batches):
+            process(frames_np)
     return {
-        "h2d_frames": cuda_time_ms(lambda: frames.copy_(pinned, non_blocking=True)),
-        "letterbox_canvas": cuda_time_ms(lambda: letterbox_canvas_u8(frames, hw, formula=formula)),
-        "face_preprocess": cuda_time_ms(lambda: preprocess_batch_device(canvas, hw, dtype=face.dtype)),
-        "face_net": cuda_time_ms(lambda: face.net(x)),
-        "face_nms": cuda_time_ms(lambda: batched_nms_padded(dets, face.confidence, face.nms_iou,
-                                                          face.max_detections)),
-        "face_program": cuda_time_ms(lambda: face._detect_program(canvas, shapes)),
-        "plate_program": cuda_time_ms(lambda: plate._detect_letterboxed_program(canvas, shapes, geom)),
-        "mosaic_kernel_device": profiled_device_ms(
-            lambda: mosaic_boxes_batch_cuda_(work, boxes, valid, 8)
-        )[0],
-        "d2h_frames": cuda_time_ms(lambda: host.copy_(frames, non_blocking=True)),
-    }
-
-
-@torch.inference_mode()
-def stage_times_yuv(engine, yuv_np):
-    """The I420 path's own stages: the mosaic's two kernel calls on the
-    engine's boxes of this batch, each on its view of the I420 buffer."""
-    from video_desensitization_torch.ops.cuda_mosaic import (
-        i420_kernel_calls,
-        mosaic_boxes_batch_cuda_,
-    )
-    from video_desensitization_torch.ops.yuv import i420_to_rgb_u8
-
-    pinned = torch.from_numpy(yuv_np).pin_memory()
-    frames = pinned.cuda()
-    shapes = torch.tensor([[HEIGHT, WIDTH]] * BATCH, dtype=torch.float32, device="cuda")
-    _, face_px, face_keep, plate_px, plate_keep = engine.program(frames.clone(), shapes)
-    boxes = torch.cat([face_px[..., :4], plate_px[..., :4]], 1).to(torch.int32)
-    valid = torch.cat([face_keep, plate_keep], 1)
-    y_call, uv_call = i420_kernel_calls(frames.clone(), boxes, valid, engine.mosaic_level)
-    host = torch.empty_like(pinned).pin_memory()
-    return {
-        "h2d_i420": cuda_time_ms(lambda: frames.copy_(pinned, non_blocking=True)),
-        "i420_to_rgb": cuda_time_ms(lambda: i420_to_rgb_u8(frames, HEIGHT, WIDTH)),
-        "mosaic_kernel_device_y": profiled_device_ms(lambda: mosaic_boxes_batch_cuda_(*y_call))[0],
-        "mosaic_kernel_device_uv": profiled_device_ms(lambda: mosaic_boxes_batch_cuda_(*uv_call))[0],
-        "d2h_i420": cuda_time_ms(lambda: host.copy_(frames, non_blocking=True)),
+        "stage_ms": {k: v / batches * 1e3 for k, v in timer.totals.items()},
+        "spans_per_batch": {k: n / batches for k, n in timer.counts.items()},
     }
 
 
@@ -212,7 +143,7 @@ def main(argv=None) -> int:
         "e2e_fps": fps,
         "e2e_fps_results_held": fps_held,
         "boxes_per_frame": boxes / (args.batches * BATCH),
-        "stage_ms": (stage_times_yuv if args.yuv else stage_times)(engine, frames),
+        **span_ms(process, frames, args.batches),
         "host_syncs_per_batch": host_syncs(process, frames),
         "device_busy_share": busy,
         "top_kernels": top,
