@@ -296,3 +296,185 @@ def test_engine_process_batch_yuv_on_the_card(cuda):
     want = mosaic_i420_batch(torch.from_numpy(yuv), torch.from_numpy(boxes.astype(np.int32)),
                              torch.from_numpy(valid), 8)
     np.testing.assert_array_equal(res.frames, want.numpy())
+
+
+class _Eager:
+    """A ``SegmentGraphs`` backend that never captures: the eager path."""
+
+    @staticmethod
+    def usable(device):
+        return False
+
+
+def _eager_and_graphed(det, run):
+    """``run()`` with the detector's graphs, then with its segments eager."""
+    graphed = tuple(t.clone() for t in run())
+    own, det._graphs = det._graphs, type(det._graphs)(det._graphs.span_name, _Eager)
+    try:
+        eager = run()
+    finally:
+        det._graphs = own
+    torch.cuda.synchronize()
+    return graphed, eager
+
+
+def _main_path_detectors(cuda, seed=0, input_hw=(640, 640), backbone="resnet50",
+                         dtype=torch.bfloat16):
+    from video_desensitization_torch.detect.face import Retinaface
+    from video_desensitization_torch.detect.plate import PlateDetector
+
+    face = Retinaface(backbone=backbone, input_shape=[*input_hw, 3], max_detections=128,
+                      dtype=dtype, device=cuda, seed=seed)
+    plate = PlateDetector(variant="n", input_shape=input_hw, max_detections=64, dtype=dtype,
+                          device=cuda, seed=seed)
+    return face, plate
+
+
+def _programs(face, plate, canvas, shapes, lb_geom):
+    return {"face": (face, lambda: face._detect_program(canvas, shapes)),
+            "plate": (plate, lambda: plate._detect_letterboxed_program(canvas, shapes, lb_geom))}
+
+
+@pytest.mark.parametrize("which", ["face", "plate"])
+def test_graph_replays_are_bitwise_eager_at_batch_16_640(cuda, which):
+    """The shared-canvas programs at the main path's sizes: the first call
+    eager, the second captures and replays, then replays; each against the
+    same detector with its segments run eagerly."""
+    from video_desensitization_torch.ops.image import letterbox_params
+    from video_desensitization_torch.utils.timers import StageTimer, activate
+
+    face, plate = _main_path_detectors(cuda)
+    rng = np.random.default_rng(11)
+    shapes = torch.tensor([[1080.0, 1920.0]] * 16, device=cuda)
+    lb_geom = torch.tensor([letterbox_params((1080, 1920), (640, 640))] * 16,
+                           dtype=torch.float32, device=cuda)
+    timer = StageTimer()
+    for i in range(4):
+        canvas = torch.from_numpy(rng.integers(0, 256, (16, 640, 640, 3), dtype=np.uint8)).to(cuda)
+        det, run = _programs(face, plate, canvas, shapes, lb_geom)[which]
+        with activate(timer):
+            graphed, eager = _eager_and_graphed(det, run)
+        for g, e in zip(graphed, eager):
+            assert torch.equal(g, e), (i, which)
+        assert graphed[-1].any()  # boxes kept
+    assert timer.counts[f"{which}.graph"] == 3 and len(det._graphs._graphs) == 1
+
+
+def test_a_replay_after_load_state_dict_matches_eager_on_the_new_weights(cuda):
+    from video_desensitization_torch.ops.image import letterbox_params
+
+    face, plate = _main_path_detectors(cuda, input_hw=(128, 128), backbone="mobilenet",
+                                       dtype=torch.float32)
+    new_face, new_plate = _main_path_detectors(cuda, seed=7, input_hw=(128, 128),
+                                               backbone="mobilenet", dtype=torch.float32)
+    rng = np.random.default_rng(12)
+    canvas = torch.from_numpy(rng.integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)).to(cuda)
+    shapes = torch.tensor([[96.0, 128.0]] * 2, device=cuda)
+    lb_geom = torch.tensor([letterbox_params((96, 128), (128, 128))] * 2, dtype=torch.float32,
+                           device=cuda)
+    for which, (det, run) in _programs(face, plate, canvas, shapes, lb_geom).items():
+        before = [t.clone() for t in run()]
+        run()  # captured on the old weights
+        assert len(det._graphs._graphs) == 1
+        det.net.load_state_dict((new_face if which == "face" else new_plate).net.state_dict())
+        graphed, eager = _eager_and_graphed(det, run)
+        for g, e in zip(graphed, eager):
+            assert torch.equal(g, e), which
+        assert any(not torch.equal(b, g) for b, g in zip(before, graphed)), which
+
+
+@pytest.mark.parametrize("which", ["face", "plate", "plate-letterboxed"])
+def test_a_replay_after_other_geometries_fill_the_caches_matches_eager(cuda, which):
+    """The per-detector programs read cached device constants (the BGR mean,
+    the resize tables, the pad) by address from inside their graphs. After
+    hundreds of other geometries went through those caches and the freed
+    blocks, had there been any, were written over, a replay still equals
+    eager bitwise."""
+    from video_desensitization_torch.ops.image import _axis_tables
+    from video_desensitization_torch.utils.graphs import device_constant
+
+    face, plate = _main_path_detectors(cuda, input_hw=(128, 128), backbone="mobilenet",
+                                       dtype=torch.float32)
+    from video_desensitization_torch.ops.image import letterbox_params
+
+    det = face if which == "face" else plate
+    rng = np.random.default_rng(17)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, 96, 160, 3), dtype=np.uint8)).to(cuda)
+    shapes = torch.tensor([[96.0, 160.0]] * 2, device=cuda)
+    if which == "plate-letterboxed":
+        canvas = torch.from_numpy(rng.integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)).to(cuda)
+        lb_geom = torch.tensor([letterbox_params((96, 160), (128, 128))] * 2,
+                               dtype=torch.float32, device=cuda)
+        run = lambda: plate._detect_letterboxed_program(canvas, shapes, lb_geom)
+    else:
+        run = lambda: det._detect_program(frames, shapes)
+    run(), run()  # eager, then captured
+    assert len(det._graphs._graphs) == 1
+    for i in range(300):
+        device_constant((float(i), 0.5, 0.25), torch.float32, cuda)
+        device_constant(i % 256, torch.uint8, cuda)
+        _axis_tables(97 + i, 128, cuda)
+    litter = [torch.full((n,), 7777, dtype=torch.int32, device=cuda)
+              for n in (1, 3, 4, 128, 160) for _ in range(200)]
+    del litter
+    graphed, eager = _eager_and_graphed(det, run)
+    for g, e in zip(graphed, eager):
+        assert torch.equal(g, e), which
+
+
+def _engine_batches(seed, n, b=16):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (b, 1080, 1920, 3), dtype=np.uint8) for _ in range(n)]
+
+
+@pytest.fixture
+def main_engine(cuda):
+    from video_desensitization_torch.pipeline.engine import DesensitizationEngine
+
+    face, plate = _main_path_detectors(cuda)
+    return DesensitizationEngine(face, plate, mosaic_level=8)
+
+
+def test_engine_process_batch_on_graphs_is_bitwise_eager(main_engine):
+    """Frames, boxes and keep counts of the main-path engine at batch 16 on
+    1080p frames, graphs on against the same engine's segments eager; a
+    tail batch of 5 is a key of its own."""
+    from video_desensitization_torch.utils.timers import StageTimer, activate
+
+    engine = main_engine
+    batches = _engine_batches(13, 4) + _engine_batches(14, 3, b=5)
+    timer = StageTimer()
+    with activate(timer):
+        graphed = [engine.process_batch(f.copy()) for f in batches]
+    assert timer.counts["face.graph"] == timer.counts["plate.graph"] == 3 + 2
+    dets = (engine.face, engine.plate)
+    own = [d._graphs for d in dets]
+    for d in dets:
+        d._graphs = type(d._graphs)(d._graphs.span_name, _Eager)
+    try:
+        eager = [engine.process_batch(f.copy()) for f in batches]
+    finally:
+        for d, g in zip(dets, own):
+            d._graphs = g
+    for g, e in zip(graphed, eager):
+        np.testing.assert_array_equal(g.frames, e.frames)
+        assert g.face_boxes == e.face_boxes and g.plate_boxes == e.plate_boxes
+        assert (g.num_faces, g.num_plates) == (e.num_faces, e.num_plates)
+    assert sum(r.num_faces + r.num_plates for r in graphed) > 0
+
+
+def test_host_syncs_of_a_batch_on_graphs_are_the_nms_reads(main_engine):
+    """In one batch on replayed graphs, every synchronising call the CUDA
+    sync debug mode reports is one of NMS's convergence reads."""
+    from video_desensitization_torch.profile_engine import host_syncs
+    from video_desensitization_torch.utils.timers import StageTimer, activate
+
+    engine = main_engine
+    frames = _engine_batches(15, 1)[0]
+    for _ in range(3):
+        engine.process_batch(frames)
+    timer = StageTimer()
+    with activate(timer):
+        syncs = host_syncs(engine.process_batch, frames)
+    assert timer.counts["face.graph"] == timer.counts["plate.graph"] == 1
+    assert syncs == timer.counts["nms.flag_read"] > 0

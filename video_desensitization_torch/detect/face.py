@@ -9,7 +9,10 @@ Results are padded (B, K, 15) rows plus a keep mask on the device, turned
 into the reference's per-image box lists at the API boundary. With a
 ``mesh`` (``parallel/mesh.py``) the detector holds one replica per data
 shard and ``detect_padded`` pads the batch to the mesh's device count,
-runs each shard on its device and joins the shards in order.
+runs each shard on its device and joins the shards in order. On CUDA the
+stretch from the frames to NMS's first convergence read replays a CUDA
+graph from the second batch of a shape on (``utils/graphs.py``); each
+replica keeps its own graphs.
 """
 
 from __future__ import annotations
@@ -33,13 +36,14 @@ from video_desensitization_torch.ops.boxes import (
     scale_to_pixels,
 )
 from video_desensitization_torch.ops.image import preprocess_batch_device
-from video_desensitization_torch.ops.nms import batched_nms_padded
+from video_desensitization_torch.ops.nms import nms_rounds, nms_settings, nms_setup
 from video_desensitization_torch.parallel.mesh import (
     data_parallel_program,
     pad_batch_to_devices,
     shard_batch,
     shard_params,
 )
+from video_desensitization_torch.utils.graphs import SegmentGraphs
 from video_desensitization_torch.utils.timers import span
 
 
@@ -90,6 +94,7 @@ class Retinaface:
         self.net.eval().to(device=self.device, dtype=self.dtype)
         if self.device.type == "cuda":
             self.net.to(memory_format=torch.channels_last)
+        self._graphs = SegmentGraphs("face.graph")
         if self.mesh is not None:
             self._replicas = self.replicate(self.mesh)
             self._mesh_program = data_parallel_program(
@@ -104,22 +109,30 @@ class Retinaface:
             r.__dict__.pop("_replicas", None)
             r.__dict__.pop("_mesh_program", None)
             r.mesh, r.device, r.net, r.anchors = None, dev, net, self.anchors.to(dev)
+            r._graphs = SegmentGraphs("face.graph")
             replicas.append(r)
         return replicas
+
+    def _segment(self, frames_u8: torch.Tensor):
+        """uint8 NHWC frames -> NMS set-up (``ops/nms.py::nms_setup``):
+        letterbox, mean-sub, forward, decode. No host read or copy, so on
+        CUDA a graph holds it (``utils/graphs.py``)."""
+        x = preprocess_batch_device(frames_u8, self.input_hw, dtype=self.dtype)
+        loc, conf, landm = self.net(x.permute(0, 3, 1, 2))
+        loc, conf, landm = loc.float(), conf.float(), landm.float()
+        boxes = decode_boxes(loc, self.anchors, self.cfg["variance"])
+        landms = decode_landmarks(landm, self.anchors, self.cfg["variance"])
+        dets = torch.cat([boxes, conf[..., 1:2], landms], dim=-1)
+        return nms_setup(dets, *nms_settings(self))
 
     @torch.inference_mode()
     def _detect_program(self, frames_u8: torch.Tensor, image_shapes: torch.Tensor):
         """uint8 NHWC frames -> (dets_norm, dets_px, keep), all on device."""
         with span("face.program"):
-            x = preprocess_batch_device(frames_u8, self.input_hw, dtype=self.dtype)
-            loc, conf, landm = self.net(x.permute(0, 3, 1, 2))
-            loc, conf, landm = loc.float(), conf.float(), landm.float()
-            boxes = decode_boxes(loc, self.anchors, self.cfg["variance"])
-            landms = decode_landmarks(landm, self.anchors, self.cfg["variance"])
-            dets = torch.cat([boxes, conf[..., 1:2], landms], dim=-1)
-            dets, keep = batched_nms_padded(
-                dets, self.confidence, self.nms_iou, self.max_detections
-            )
+            # The graph's outputs are read here, on this stream, before the
+            # next call replays it; the epilogue writes fresh tensors.
+            dets, keep = nms_rounds(
+                *self._graphs(self._segment, frames_u8, settings=nms_settings(self)))
             if self.letterbox_image:
                 dets = letterbox_correction(dets, self.input_hw, image_shapes)
                 dets = torch.where(keep[..., None], dets, torch.zeros_like(dets))

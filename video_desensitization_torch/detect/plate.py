@@ -3,7 +3,9 @@
 Preprocessing follows ultralytics: aspect-preserving resize onto a 114-gray
 canvas, /255; boxes map back to original pixels by the exact inverse
 letterbox, clipped to the image. With a ``mesh`` the batch is padded,
-sharded and run on one replica per data shard, as in ``detect/face.py``.
+sharded and run on one replica per data shard, as in ``detect/face.py``,
+and on CUDA the stretch up to NMS's first convergence read replays a CUDA
+graph as there.
 """
 
 from __future__ import annotations
@@ -18,13 +20,14 @@ from video_desensitization_torch import resolve_device
 from video_desensitization_torch.models.common import load_weights
 from video_desensitization_torch.models.yolo import YoloV8
 from video_desensitization_torch.ops.image import letterbox_device_auto, letterbox_params
-from video_desensitization_torch.ops.nms import batched_nms_padded
+from video_desensitization_torch.ops.nms import nms_rounds, nms_settings, nms_setup
 from video_desensitization_torch.parallel.mesh import (
     data_parallel_program,
     pad_batch_to_devices,
     shard_batch,
     shard_params,
 )
+from video_desensitization_torch.utils.graphs import SegmentGraphs, device_constant
 from video_desensitization_torch.utils.timers import span
 
 YOLO_PAD_VALUE = 114.0
@@ -66,6 +69,7 @@ class PlateDetector:
         self.net.eval().to(device=self.device, dtype=dtype)
         if self.device.type == "cuda":
             self.net.to(memory_format=torch.channels_last)
+        self._graphs = SegmentGraphs("plate.graph")
         if mesh is not None:
             self._replicas = self.replicate(mesh)
             self._mesh_program = data_parallel_program(
@@ -80,16 +84,38 @@ class PlateDetector:
             r.__dict__.pop("_replicas", None)
             r.__dict__.pop("_mesh_program", None)
             r.mesh, r.device, r.net = None, dev, net
+            r._graphs = SegmentGraphs("plate.graph")
             replicas.append(r)
         return replicas
 
-    def _forward_nms(self, x: torch.Tensor):
-        """Normalized NHWC input -> NMS'd (B, K, 6) [x1,y1,x2,y2,score,cls]
-        in input pixels + keep mask."""
+    def _forward_setup(self, x: torch.Tensor):
+        """Normalized NHWC input -> NMS set-up (``ops/nms.py::nms_setup``)
+        of the (B, A, 6) [x1,y1,x2,y2,score,cls] rows in input pixels."""
         boxes, probs = self.net(x.to(self.dtype).permute(0, 3, 1, 2))
         score, cls = torch.max(probs, dim=-1, keepdim=True)
         dets = torch.cat([boxes, score, cls.to(torch.float32)], dim=-1)
-        return batched_nms_padded(dets, self.confidence, self.nms_iou, self.max_detections)
+        return nms_setup(dets, *nms_settings(self))
+
+    def _segment(self, frames_u8: torch.Tensor):
+        """uint8 NHWC frames -> NMS set-up: the float letterbox onto 114
+        gray, /255, forward. No host read or copy: a graph holds it on
+        CUDA (``utils/graphs.py``)."""
+        x = letterbox_device_auto(frames_u8, self.input_hw, pad_value=YOLO_PAD_VALUE)
+        return self._forward_setup(x / 255.0)
+
+    def _letterboxed_segment(self, lb_frames_u8: torch.Tensor, lb_geom: torch.Tensor):
+        """Frames letterboxed to ``input_hw`` and their (B, 4) geometry ->
+        NMS set-up: the pad re-filled with YOLO's 114 gray, /255, forward.
+        A graph holds it on CUDA, as ``_segment``."""
+        h, w = self.input_hw
+        dev = lb_frames_u8.device
+        nh, nw, top, left = (lb_geom[:, i : i + 1, None] for i in range(4))
+        ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+        xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+        inside = (ys >= top) & (ys < top + nh) & (xs >= left) & (xs < left + nw)
+        pad = device_constant(int(YOLO_PAD_VALUE), torch.uint8, dev)
+        x = torch.where(inside[..., None], lb_frames_u8, pad)
+        return self._forward_setup(x.to(torch.float32) / 255.0)
 
     @torch.inference_mode()
     def _detect_program(self, frames_u8: torch.Tensor, image_shapes: torch.Tensor):
@@ -97,10 +123,12 @@ class PlateDetector:
         pixels + keep mask."""
         with span("plate.program"):
             _, ih, iw, _ = frames_u8.shape
-            x = letterbox_device_auto(frames_u8, self.input_hw, pad_value=YOLO_PAD_VALUE)
-            dets, keep = self._forward_nms(x / 255.0)
+            # The graph's outputs are read here, on this stream, before the
+            # next call replays it; the epilogue writes fresh tensors.
+            dets, keep = nms_rounds(
+                *self._graphs(self._segment, frames_u8, settings=nms_settings(self)))
             nh, nw, top, left = letterbox_params((ih, iw), self.input_hw)
-            row = lambda *v: torch.tensor(v, dtype=torch.float32, device=dets.device)
+            row = lambda *v: device_constant(v, torch.float32, dets.device)
             boxes = _inverse_letterbox(
                 dets[..., :4], row(left, top, left, top), row(iw / nw, ih / nh).repeat(2),
                 row(iw, ih, iw, ih),
@@ -124,16 +152,12 @@ class PlateDetector:
         device can place the content one pixel off for some heights).
         """
         with span("plate.program"):
-            h, w = self.input_hw
-            dev = lb_frames_u8.device
+            # Read on this stream before the next replay, as in _detect_program.
+            dets, keep = nms_rounds(
+                *self._graphs(self._letterboxed_segment, lb_frames_u8, lb_geom,
+                             settings=nms_settings(self)))
             oh, ow = image_shapes[:, 0:1], image_shapes[:, 1:2]
             nh, nw, top, left = (lb_geom[:, i : i + 1, None] for i in range(4))
-            ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
-            xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
-            inside = (ys >= top) & (ys < top + nh) & (xs >= left) & (xs < left + nw)
-            pad = torch.tensor(int(YOLO_PAD_VALUE), dtype=torch.uint8, device=dev)
-            x = torch.where(inside[..., None], lb_frames_u8, pad)
-            dets, keep = self._forward_nms(x.to(torch.float32) / 255.0)
             gain_x = ow / torch.clamp(nw[..., 0], min=1.0)
             gain_y = oh / torch.clamp(nh[..., 0], min=1.0)
             boxes = _inverse_letterbox(

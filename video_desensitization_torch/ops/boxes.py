@@ -11,6 +11,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from video_desensitization_torch.utils.graphs import device_constant
+
 DEFAULT_VARIANCES: Tuple[float, float] = (0.1, 0.2)
 
 
@@ -64,7 +66,7 @@ def letterbox_correction(
     """Map normalized letterboxed-space (B, K, 15) detections
     ``[x1,y1,x2,y2,score,10*landmark]`` back to normalized coordinates of
     each original image. image_shapes: (B, 2) ``[h, w]``."""
-    inp = torch.tensor(input_shape, dtype=detections.dtype, device=detections.device)
+    inp = device_constant(tuple(input_shape), detections.dtype, detections.device)
     img = image_shapes.to(detections.dtype)
     scale_ratio = torch.amin(inp / img, dim=-1, keepdim=True)
     new_shape = img * scale_ratio

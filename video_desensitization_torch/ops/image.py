@@ -17,11 +17,14 @@ or neither matches. Callers then take the float path (``letterbox_device``).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from video_desensitization_torch.utils.graphs import device_constant
 
 BGR_MEAN = (104.0, 117.0, 123.0)
 PAD_VALUE = 128.0
@@ -70,7 +73,7 @@ def letterbox_host(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 
 def preprocess_input(image: torch.Tensor) -> torch.Tensor:
     """Subtract the detector training mean, preserving channel order."""
-    return image - torch.tensor(BGR_MEAN, dtype=image.dtype, device=image.device)
+    return image - device_constant(BGR_MEAN, image.dtype, image.device)
 
 
 def _pad_canvas(resized: torch.Tensor, dst_hw, top: int, left: int, pad_value):
@@ -153,6 +156,18 @@ def cv2_resize_formula(src_hw: Tuple[int, int], dst_hw: Tuple[int, int]):
     return verdict
 
 
+@functools.cache
+def _axis_tables(src: int, dst: int, device: torch.device):
+    """``cv2_linear_axis_tables`` on ``device``, made once per geometry
+    (a capture cannot hold a host copy), and whether any second
+    coefficient is nonzero. Never evicted: a captured graph reads the
+    tables by address (``utils/graphs.py``)."""
+    tables = cv2_linear_axis_tables(src, dst)
+    with torch.inference_mode(False):
+        on_device = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in tables)
+    return on_device, bool(tables[3].any())
+
+
 def resize_linear_cv2_exact(
     frames: torch.Tensor, dst_hw: Tuple[int, int], formula: str = "scalar"
 ) -> torch.Tensor:
@@ -162,27 +177,22 @@ def resize_linear_cv2_exact(
     full formula below reproduces bit for bit."""
     _, ih, iw, _ = frames.shape
     dh, dw = dst_hw
-    x0, x1, ax0, ax1 = cv2_linear_axis_tables(iw, dw)
-    y0, y1, by0, by1 = cv2_linear_axis_tables(ih, dh)
-    if (ih, iw) == (dh, dw) and not ax1.any() and not by1.any():
+    (x0, x1, ax0, ax1), x_blends = _axis_tables(iw, dw, frames.device)
+    (y0, y1, by0, by1), y_blends = _axis_tables(ih, dh, frames.device)
+    if (ih, iw) == (dh, dw) and not x_blends and not y_blends:
         return frames  # identity geometry
-    dev = frames.device
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
     src = frames.to(torch.int32)
-    if ax1.any():
-        rows = torch.index_select(src, 2, t(x0)) * t(ax0)[None, None, :, None] + (
-            torch.index_select(src, 2, t(x1)) * t(ax1)[None, None, :, None]
+    if x_blends:
+        rows = torch.index_select(src, 2, x0) * ax0[None, None, :, None] + (
+            torch.index_select(src, 2, x1) * ax1[None, None, :, None]
         )
     else:  # horizontal point selection (a0 == 2048 everywhere)
-        rows = torch.index_select(src, 2, t(x0)) << _INTER_BITS
-    r0 = torch.index_select(rows, 1, t(y0))
-    b0 = t(by0)[None, :, None, None]
-    if by1.any():
-        r1 = torch.index_select(rows, 1, t(y1))
-        b1 = t(by1)[None, :, None, None]
+        rows = torch.index_select(src, 2, x0) << _INTER_BITS
+    r0 = torch.index_select(rows, 1, y0)
+    b0 = by0[None, :, None, None]
+    if y_blends:
+        r1 = torch.index_select(rows, 1, y1)
+        b1 = by1[None, :, None, None]
     else:  # vertical point selection: the zero-weight tap contributes 0
         r1 = torch.zeros_like(r0)
         b1 = torch.zeros_like(b0)

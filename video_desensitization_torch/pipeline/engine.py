@@ -48,6 +48,7 @@ from video_desensitization_torch.ops.mosaic import (
 )
 from video_desensitization_torch.ops.yuv import i420_to_rgb_u8
 from video_desensitization_torch.parallel.mesh import device_guard, pad_batch_to_devices
+from video_desensitization_torch.utils.graphs import device_constant
 from video_desensitization_torch.utils.timers import span
 
 
@@ -127,9 +128,8 @@ class DesensitizationEngine:
                 formula = letterbox_canvas_formula((h, w), face.input_hw)
                 if formula is not None:
                     canvas = letterbox_canvas_u8(frames_u8, face.input_hw, formula=formula)
-                    lb_geom = torch.tensor(
-                        letterbox_params((h, w), face.input_hw),
-                        dtype=torch.float32, device=frames_u8.device,
+                    lb_geom = device_constant(
+                        letterbox_params((h, w), face.input_hw), torch.float32, frames_u8.device,
                     ).expand(b, 4)
                     self.last_letterbox = f"shared-{formula}"
         if canvas is None:

@@ -15,7 +15,8 @@ frames per batch (8 random 1620x1920 I420 frames through
     ``process_batch``, each waiting for its batch: host ms a batch and
     spans a batch of each (``nms.flag_read``: the NMS rounds' host syncs);
   * ``host_syncs_per_batch``: synchronising calls in one ``process_batch``
-    (CUDA sync debug mode), which the NMS fixpoint rounds dominate;
+    (CUDA sync debug mode): NMS's convergence reads alone, once the
+    detectors' CUDA graphs replay (``utils/graphs.py``);
   * ``device_busy_share`` and the top kernels by device time from
     ``torch.profiler`` over a few batches, or "not measured" when the
     profiler reports no device time.
