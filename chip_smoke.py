@@ -23,6 +23,18 @@ Phases, each printing one line and asserting:
      mosaic of the engine's own boxes, the same detections as process_batch
      on the cv2-exact RGB of the same frames, and the kernel's device time
      on the Y call and the chroma call beside each one's bound;
+  5b. msda: the multi-scale deformable attention kernel (csrc/msda.cu),
+     the port's second: the fused engine that cli.main.build_engine makes
+     with plate_arch = rtdetr-r50vd (RT-DETR-R50 at 640, bf16, random
+     weights) over a few 16x1080x1920 RGB batches, the wrapper's launch
+     count set to 0 just before them (the first batch eager, the second
+     captured: replays call no wrapper) and the kernel's executions in one
+     replayed batch under torch.profiler (one a decoder layer); then the
+     kernel at the published shapes (batch 16, 8,400 tokens, 8 heads of
+     32, 3 levels, 4 points, 300 queries) against the plain form
+     (ops/msda.py::msda_plain, grid_sample a level) on the same inputs in
+     bfloat16 and float32, at the card tests' tolerance, with its device
+     time, the plain form's and the least-bytes bound;
   6. weights: weights from files through the CLI's engine -- the main
      engine's two networks in float32 from the same seed saved as
      reference-layout checkpoints (face.pth with a ResNet classifier
@@ -138,6 +150,9 @@ TRACK_TIMED_FRAMES = 256  # 8 keyframe batches at interval 4 and batch 8
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_INPUT = 64, 32, 640
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, OVERFIT_STEPS = 3, 10, 20
 MESH_BATCHES = 3  # batches of each form in phase mesh, the first WARMUP_BATCHES run twice
+MSDA_BATCH, MSDA_QUERIES, MSDA_HEADS, MSDA_POINTS = 16, 300, 8, 4  # RT-DETR-R50's published
+MSDA_SHAPES = ((80, 80), (40, 40), (20, 20))  # its value maps at 640: 8,400 tokens
+MSDA_ENGINE_BATCHES = 4  # batches through the RT-DETR engine in phase msda
 MESH_WARMUP_STEPS, MESH_TIMED_STEPS = 2, 5  # a mesh step over gloo on one card takes ~1 s
 MESH_RANK_TIMEOUT_S = 300
 MESH_EQUAL_STEPS = 3  # float32 steps after which every rank's replicated parameters must agree
@@ -365,6 +380,101 @@ def phase_engine(engine) -> dict:
         flush=True,
     )
     return {**timing, "launches": launches, "fps": fps}
+
+
+def msda_inputs(dtype, seed: int = 0):
+    """Seeded value, offsets, logits and boxes at the published shapes, as
+    the card tests make them (offsets wide enough that points leave the
+    maps)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    b, q, h = MSDA_BATCH, MSDA_QUERIES, MSDA_HEADS
+    levels, points = len(MSDA_SHAPES), MSDA_POINTS
+    value = torch.randn(b, sum(y * x for y, x in MSDA_SHAPES), h, 32, generator=g)
+    ref = torch.rand(b, q, 4, generator=g)
+    ref[..., 2:] *= 0.6
+    offsets = torch.randn(b, q, h, levels, points, 2, generator=g) * 2.0
+    logits = torch.randn(b, q, h, levels * points, generator=g) * 2
+    return value.to("cuda", dtype), offsets.cuda(), logits.cuda(), ref.cuda()
+
+
+def phase_msda() -> dict:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.arith.msda_bytes import call_bytes
+    from video_desensitization_torch.api.config import PipelineConfig
+    from video_desensitization_torch.bench_util import (
+        cuda_time_ms,
+        host_ms_per_call,
+        profiled_device_ms,
+    )
+    from video_desensitization_torch.cli.main import build_engine
+    from video_desensitization_torch.ops import cuda_msda
+    from video_desensitization_torch.ops.msda import msda_plain, sampling_locations
+
+    cfg = PipelineConfig(engine="fused", plate_arch="rtdetr-r50vd", model_path="random",
+                         model_weights="random", batch_size=MSDA_BATCH, dtype="bfloat16")
+    engine = build_engine(cfg, with_plates=True, allow_random=True, device="cuda")
+    layers = len(engine.plate.net.decoder.decoder.layers)
+    rng = np.random.default_rng(2)
+    batches = [rng.integers(0, 256, (MSDA_BATCH, HEIGHT, WIDTH, 3), dtype=np.uint8)
+               for _ in range(2)]
+    cuda_msda.msda_cuda.launches = 0
+    t0 = time.perf_counter()
+    for i in range(MSDA_ENGINE_BATCHES):
+        res = engine.process_batch(batches[i % 2])
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    launches = cuda_msda.msda_cuda.launches
+    check(launches == 2 * layers, f"msda wrapper called {launches}x: eager and capture make "
+                                  f"{2 * layers}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.process_batch(batches[0])
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    executions = sum(e.count for e in prof.key_averages()
+                     if getattr(e, "device_type", None) == cuda and "msda_kernel" in e.key)
+    check(executions == layers, f"{executions} msda kernels in a replayed batch, not {layers}")
+    check(cuda_msda.msda_cuda.launches == launches, "a replayed batch called the wrapper")
+    plates = sum(len(p) for p in res.plate_boxes) / MSDA_BATCH
+    del engine, res
+
+    parts, out = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        value, offsets, logits, ref = msda_inputs(dtype)
+        got = cuda_msda.msda_cuda(value, MSDA_SHAPES, offsets, logits, ref).float()
+        want = msda_plain(value.float(), MSDA_SHAPES, offsets, logits, ref).float()
+        slack = 1e-4 + (2.0 ** -8 if dtype == torch.bfloat16 else 1e-4) * want.abs()
+        gap = (got - want).abs()
+        check(bool((gap <= slack).all()), f"msda kernel != plain ({dtype}), max gap "
+                                          f"{float(gap.max()):.3e}")
+
+        def call():
+            cuda_msda.msda_cuda(value, MSDA_SHAPES, offsets, logits, ref)
+
+        device_ms, kernels = profiled_device_ms(call, TIMED_CALLS)
+        check(device_ms is not None and kernels == 1, f"the profiler saw {kernels} kernels a call")
+        loc = sampling_locations(ref, offsets)
+        elem = torch.finfo(dtype).bits // 8
+        r = {"max_abs_err": float(gap.max()), "ms": device_ms, "kernels_per_call": kernels,
+             "host_ms": host_ms_per_call(call, TIMED_CALLS),
+             "plain_ms": cuda_time_ms(lambda: msda_plain(value, MSDA_SHAPES, offsets, logits, ref), 3),
+             "bound_ms": call_bytes(loc, MSDA_SHAPES, 32, elem) / HBM_BYTES_PER_S * 1e3}
+        out[str(dtype).split(".")[-1]] = r
+        parts.append(f"{str(dtype).split('.')[-1]}: max gap {r['max_abs_err']:.3e}, "
+                     f"{timing_text(r)}")
+    print(f"phase msda: RT-DETR-R50 engine (build_engine, plate_arch rtdetr-r50vd, 640 bf16) "
+          f"{MSDA_ENGINE_BATCHES}x{MSDA_BATCH}x{HEIGHT}x{WIDTH} in {engine_s:.2f} s: msda wrapper "
+          f"calls {launches} (first batch eager, second captured), {executions} kernels in a "
+          f"replayed batch (profiler), {plates:.2f} plates a frame | kernel at B {MSDA_BATCH}, "
+          f"{sum(y * x for y, x in MSDA_SHAPES)} tokens, {MSDA_HEADS}x32, {len(MSDA_SHAPES)} "
+          f"levels, {MSDA_POINTS} points, {MSDA_QUERIES} queries vs msda_plain: "
+          + " | ".join(parts), flush=True)
+    return {**out["bfloat16"], "launches": launches, "kernels_per_batch": executions,
+            "float32": out["float32"]}
 
 
 def phase_weights(main_engine, smi: str) -> dict:
@@ -2053,6 +2163,7 @@ def main() -> int:
     main_engine = main_path_engine()
     engine = phase_engine(main_engine)
     yuv = phase_yuv(main_engine, engine["fps"])
+    msda = phase_msda()  # before weights: it reads the profiler's kernel count
     weights = phase_weights(main_engine, smi)  # after yuv: its subprocesses cost the profiler kernels
     phase_tiered(main_engine)
     phase_record(main_engine)
@@ -2093,7 +2204,26 @@ def main() -> int:
         "mesh_launches": mesh["launches"],
         "mesh_devices": mesh["devices"],
     }
-    print(json.dumps({"kernels": [kernel]}))
+    msda_kernel = {
+        "name": "msda",
+        "route": "cuda",
+        "source": "video_desensitization_torch/csrc/msda.cu",
+        "replaces": None,
+        "launches": msda["launches"],
+        "kernels_per_batch": msda["kernels_per_batch"],
+        "max_abs_err": msda["max_abs_err"],
+        "ms": msda["ms"],
+        "plain_ms": msda["plain_ms"],
+        "bound_ms": msda["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "host_ms": msda["host_ms"],
+        "cuda_kernels_per_call": msda["kernels_per_call"],
+        "float32_ms": msda["float32"]["ms"],
+        "float32_plain_ms": msda["float32"]["plain_ms"],
+        "float32_bound_ms": msda["float32"]["bound_ms"],
+    }
+    print(json.dumps({"kernels": [kernel, msda_kernel]}))
     print(smi)
     print(json.dumps({
         "ok": True,

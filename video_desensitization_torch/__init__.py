@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the video desensitization engine.
 
-Face (RetinaFace) and licence-plate (YOLOv8) detection plus in-place mosaic
-of every detected box, on uint8 NHWC frames. The hand-written CUDA kernel
-lives in ``csrc/`` and is built with ``nvcc`` at first use
-(``ops/cuda_mosaic.py``). Entry points run on ``cuda`` unless the caller
+Face (RetinaFace) and licence-plate (YOLOv8, or RT-DETR) detection plus
+in-place mosaic of every detected box, on uint8 NHWC frames. The
+hand-written CUDA kernels, the mosaic and RT-DETR's multi-scale deformable
+attention, live in ``csrc/`` and are built with ``nvcc`` at first use
+(``ops/cuda_mosaic.py``, ``ops/cuda_msda.py``). Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 """
 

@@ -7,7 +7,8 @@ plus the engine's settings under [TPU] (all optional): dtype, mesh_data,
 mosaic_level, max_detections, input_size. The section keeps that name, and
 every key, default and check, so that one config.ini parses the same here
 and in the JAX package; ``cli.main.build_engine`` reads ``mesh_data = 0``
-as one device, where the JAX CLI takes every device.
+as one device, where the JAX CLI takes every device. One key is this
+package's alone: ``plate_arch`` (``yolov8n`` or ``rtdetr-r50vd``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ REQUIRED_PATH_KEYS = (
 )
 
 DEFAULT_VIDEO_FORMATS = ["h265", "hevc", "265", "mp4", "mov", "avi"]
+PLATE_ARCHS = ("yolov8n", "rtdetr-r50vd")
 
 
 @dataclasses.dataclass
@@ -54,6 +56,10 @@ class PipelineConfig:
     confidence: float = 0.5
     nms_iou: float = 0.4
     plate_confidence: float = 0.5
+    # The plate detector: "yolov8n" (YOLOv8 scale n on the shared letterbox
+    # canvas, NMS) or "rtdetr-r50vd" (RT-DETR-R50 on the stretched frame, no
+    # NMS; fused engine only). A key of this package's alone.
+    plate_arch: str = "yolov8n"
     output_fps: float = 60.0
     # "fused": detection + mosaic in one device program on full frames
     # (bandwidth-rich hosts); "tiered": host letterbox + boxes-only readback +
@@ -162,6 +168,7 @@ def load_config(path: str = "config.ini", strict: bool = True) -> PipelineConfig
         cfg.confidence = t.getfloat("confidence", cfg.confidence)
         cfg.nms_iou = t.getfloat("nms_iou", cfg.nms_iou)
         cfg.plate_confidence = t.getfloat("plate_confidence", cfg.plate_confidence)
+        cfg.plate_arch = t.get("plate_arch", cfg.plate_arch).strip()
         cfg.output_fps = t.getfloat("output_fps", cfg.output_fps)
         cfg.engine = t.get("engine", cfg.engine)
         cfg.resume = t.getboolean("resume", cfg.resume)
@@ -176,6 +183,10 @@ def load_config(path: str = "config.ini", strict: bool = True) -> PipelineConfig
     if cfg.engine not in ("tiered", "fused", "auto"):
         raise ValueError(
             f"[TPU] engine must be 'tiered', 'fused', or 'auto', got {cfg.engine!r}"
+        )
+    if cfg.plate_arch not in PLATE_ARCHS:
+        raise ValueError(
+            f"[TPU] plate_arch must be one of {', '.join(PLATE_ARCHS)}, got {cfg.plate_arch!r}"
         )
     if cfg.transfer not in ("rgb", "yuv420"):
         raise ValueError(f"[TPU] transfer must be 'rgb' or 'yuv420', got {cfg.transfer!r}")

@@ -13,9 +13,11 @@ video file or an image directory. It runs on ``cuda`` unless ``--device
 cpu`` is given. The config.ini is the JAX package's format. ``[TPU]
 engine`` picks the tiered pipeline (the default: host letterbox and
 mosaic, boxes-only readback), the fused engine, or ``auto`` (a
-host-to-device copy probe picks one); ``[TPU] detect_interval > 1`` wraps
-it in keyframe tracking (``pipeline/tracking.py``) and ``[TPU] co_batch``
-co-batches the record job's cameras (``pipeline/multicam.py``). ``[TPU]
+host-to-device copy probe picks one); ``[TPU] plate_arch`` the plate
+detector (``yolov8n``, or ``rtdetr-r50vd`` on the fused engine); ``[TPU]
+detect_interval > 1`` wraps it in keyframe tracking (``pipeline/tracking.py``)
+and ``[TPU] co_batch`` co-batches the record job's cameras
+(``pipeline/multicam.py``). ``[TPU]
 mesh_data = n > 1`` shards the fused engine's batches over a mesh of n
 devices (which must be every device), as the JAX CLI does; the tiered
 pipeline runs on one and says so. Unlike the JAX CLI, ``mesh_data = 0``
@@ -117,7 +119,9 @@ def build_engine(cfg, with_plates: bool = True, allow_random: bool = False, devi
     ``mesh_data``); 0 runs on one device, and says so where there are
     several. With ``detect_interval > 1`` the engine is wrapped in a
     ``TrackingEngine`` that detects in batches of ``track_detect_batch``,
-    or ``batch_size`` when that is 0."""
+    or ``batch_size`` when that is 0. ``plate_arch`` picks the plate
+    detector: YOLOv8n, or RT-DETR-R50 (``detect/detr.py``), which needs
+    the fused engine and raises where the engine resolves to tiered."""
     from video_desensitization_torch.detect.face import Retinaface
     from video_desensitization_torch.detect.plate import PlateDetector
     from video_desensitization_torch.parallel import mesh as mesh_lib
@@ -133,6 +137,12 @@ def build_engine(cfg, with_plates: bool = True, allow_random: bool = False, devi
         get_logger("cli").info(
             "engine=auto: link probe %.2f GiB/s -> %s (transfer=%s)",
             gib_s, engine_mode, cfg.transfer,
+        )
+    if cfg.plate_arch == "rtdetr-r50vd" and with_plates and engine_mode == "tiered":
+        raise ValueError(
+            "[TPU] plate_arch = rtdetr-r50vd needs engine = fused: RT-DETR stretches "
+            "whole frames, and the tiered pipeline sends the card only the letterboxed "
+            "content (a stretch of it would be a second resize, not RT-DETR's input)"
         )
     dtype = DTYPES[cfg.dtype]
     mesh = None
@@ -155,7 +165,17 @@ def build_engine(cfg, with_plates: bool = True, allow_random: bool = False, devi
         device=device,
     )
     plate = None
-    if with_plates:
+    if with_plates and cfg.plate_arch == "rtdetr-r50vd":
+        from video_desensitization_torch.detect.detr import RtDetrPlateDetector
+
+        plate = RtDetrPlateDetector(
+            model_path=_resolve_checkpoint(cfg.model_weights, allow_random, "plate"),
+            confidence=cfg.plate_confidence,
+            input_shape=(cfg.input_size, cfg.input_size),
+            dtype=dtype,
+            device=device,
+        )
+    elif with_plates:
         plate = PlateDetector(
             model_path=_resolve_checkpoint(cfg.model_weights, allow_random, "plate"),
             confidence=cfg.plate_confidence,

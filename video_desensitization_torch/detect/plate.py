@@ -40,6 +40,10 @@ def _inverse_letterbox(xyxy, offset, gain, limit):
 
 
 class PlateDetector:
+    # The engine may hand it its shared letterbox canvas
+    # (``_detect_letterboxed_program``) where the input sizes agree.
+    takes_letterbox = True
+
     def __init__(
         self,
         state_dict: Optional[Mapping[str, torch.Tensor]] = None,

@@ -111,15 +111,23 @@ def conv_bn_no_relu(in_ch, out_ch, stride=1):
 
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights from ``generator``: trainable conv kernels normal with
-    variance 1/fan_in (LeCun), conv biases zero, BN at identity statistics.
-    Fixed weights (YOLOv8's DFL projection) stay as built."""
+    """Random weights from ``generator``: trainable conv kernels and linear
+    weights (an attention's packed ``in_proj_weight`` too) normal with
+    variance 1/fan_in (LeCun), their biases zero, BN and LayerNorm at
+    identity. Fixed weights (YOLOv8's DFL projection) stay as built."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d) and m.weight.requires_grad:
+        if isinstance(m, (nn.Conv2d, nn.Linear)) and m.weight.requires_grad:
             fan_in = m.weight[0].numel()
             m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(getattr(m, "in_proj_weight", None), nn.Parameter):
+            m.in_proj_weight.normal_(0.0, 1.0 / math.sqrt(m.in_proj_weight.shape[1]),
+                                     generator=generator)
+            m.in_proj_bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.weight.fill_(1.0)
             m.bias.zero_()

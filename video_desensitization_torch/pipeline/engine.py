@@ -6,7 +6,8 @@ Per batch: I420 frames are converted to RGB for the detectors (cv2-exact,
 ``ops.yuv.i420_to_rgb_u8``); one cv2-exact letterbox into a shared uint8
 canvas (when the installed cv2's rounding is recognised for the geometry;
 each detector letterboxes in float otherwise), RetinaFace and YOLOv8 on
-that canvas, face boxes then plate boxes, and the mosaic kernel pixelating
+that canvas (a plate detector that takes whole frames, RT-DETR, gets the
+frames instead), face boxes then plate boxes, and the mosaic kernel pixelating
 them in place over the full-resolution frames: the RGB frames, or the I420
 planes (Y at ``mosaic_level``, U and V at half resolution).
 
@@ -78,7 +79,9 @@ class DesensitizationEngine:
         read by both detectors (face sees it unchanged; the plate program
         re-fills the pad with YOLO's 114 gray) instead of each detector
         resizing the full-resolution batch. Needs the cv2-exact formula for
-        the geometry; falls back to per-detector letterboxing otherwise.
+        the geometry; falls back to per-detector letterboxing otherwise. A
+        plate detector whose ``takes_letterbox`` is False (RT-DETR) gets the
+        frames, and the canvas is the face's alone.
 
         mesh: shard every batch over the mesh's ``data`` axis, one engine
         per data shard on its device (see the module docstring); None runs
@@ -123,8 +126,13 @@ class DesensitizationEngine:
             frames_u8 = frames
         b, h, w, _ = frames_u8.shape
         canvas = None
+        # The plate detector reads the canvas only if it takes letterboxed
+        # input at the face's size; one that takes whole frames (RT-DETR's
+        # stretch) leaves the canvas to the face alone.
+        plate_canvas = plate is not None and getattr(plate, "takes_letterbox", True)
         with span("engine.letterbox"):
-            if self.share_letterbox and (plate is None or plate.input_hw == face.input_hw):
+            if self.share_letterbox and (
+                    not plate_canvas or plate.input_hw == face.input_hw):
                 formula = letterbox_canvas_formula((h, w), face.input_hw)
                 if formula is not None:
                     canvas = letterbox_canvas_u8(frames_u8, face.input_hw, formula=formula)
@@ -140,7 +148,7 @@ class DesensitizationEngine:
         face_in = canvas if canvas is not None else frames_u8
         _, face_px, face_keep = face._detect_program(face_in, image_shapes)
         if plate is not None:
-            if canvas is not None:
+            if canvas is not None and plate_canvas:
                 plate_px, plate_keep = plate._detect_letterboxed_program(
                     canvas, image_shapes, lb_geom
                 )
